@@ -1,0 +1,84 @@
+"""Model construction (counterpart of mono_vifi_tpu/training/factory.py).
+
+Roles follow the reference trainer (train.py:142-227): encoder / depth /
+[encoder_mf / depth_mf] / fusion_module / pose_encoder / pose, plus the
+frozen training IFRNet. Sharing modes (train.py:170-179):
+  shared_all:     depth_mf IS depth (one module, one set of parameters)
+  shared_encoder: encoder shared, depth_mf a separate copy of depth
+  separate_all:   encoder_mf and depth_mf separate copies
+"""
+
+from __future__ import annotations
+
+import copy
+
+import torch
+import torch.nn as nn
+
+from mono_vifi_tpu_torch.config import Options
+from mono_vifi_tpu_torch.models import fusion, ifrnet, monodepth2, posenet
+
+
+def resolve_device(device=None) -> torch.device:
+    """The entry points' device: CUDA unless the caller names another. With
+    no card and no explicit device this raises instead of using the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device available; pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda")
+
+
+def compute_dtype(cfg: Options) -> torch.dtype:
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
+
+
+class ModelBundle(nn.Module):
+    """All modules of one training run. Trainable roles are submodules; the
+    frozen VFI network has requires_grad off."""
+
+    def __init__(self, cfg: Options):
+        super().__init__()
+        if cfg.backbone != "ResNet18":
+            raise ValueError(f"backbone {cfg.backbone} is not ported yet")
+        if cfg.fuse_model_type not in ("shared_all", "shared_encoder", "separate_all"):
+            raise ValueError(f"unknown fuse_model_type {cfg.fuse_model_type}")
+        self.cfg = cfg
+        self.dtype = dt = compute_dtype(cfg)
+        self.encoder = monodepth2.DepthEncoder(cfg.num_layers, dt)
+        self.num_ch_enc = self.encoder.num_ch_enc
+        self.depth = monodepth2.DepthDecoder(
+            self.num_ch_enc, tuple(range(cfg.num_scales)), dt
+        )
+        if cfg.fuse_model_type != "shared_all":
+            self.depth_mf = copy.deepcopy(self.depth)
+        if cfg.fuse_model_type == "separate_all":
+            self.encoder_mf = copy.deepcopy(self.encoder)
+        self.fusion_module = fusion.FusionModule(self.num_ch_enc, dtype=dt)
+        if cfg.use_pose_net:
+            self.pose_encoder = posenet.PoseEncoder(cfg.num_layers, dt)
+            self.pose = posenet.PoseDecoder(self.pose_encoder.num_ch_enc[-1], dtype=dt)
+        self.vfi_train = ifrnet.IFRNet(cfg.vfi_train_scale, dt).requires_grad_(False)
+
+    def role(self, name: str) -> nn.Module:
+        """A role's module; depth_mf resolves to depth under shared_all."""
+        if name == "depth_mf" and self.cfg.fuse_model_type == "shared_all":
+            return self.depth
+        return getattr(self, name)
+
+    def trainable_roles(self) -> dict[str, nn.Module]:
+        names = ["encoder", "depth", "depth_mf", "encoder_mf", "fusion_module",
+                 "pose_encoder", "pose"]
+        return {n: getattr(self, n) for n in names if hasattr(self, n)}
+
+
+def build_bundle(cfg: Options, seed: int = 0, device=None) -> ModelBundle:
+    """Random-init every module from `seed` (torch's default initializers),
+    without touching the global RNG, and move the bundle to `device`."""
+    device = resolve_device(device)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        bundle = ModelBundle(cfg)
+    return bundle.to(device)
