@@ -6,7 +6,7 @@ NVIDIA GPU. Run from the repository root:
 Phases, in order; any failure exits non-zero before the last line:
   1. the card's name and power limit (nvidia-smi);
   2. build of the hand-written kernels from mono_vifi_tpu_torch/csrc;
-  3. each kernel at the training step's shapes against its plain PyTorch
+  3. each kernel at the shapes its paths give it against its plain PyTorch
      version on the same inputs (max error vs a stated tolerance), with the
      kernel's, the plain version's and, where one exists, a single PyTorch
      call's time (CUDA events), and the least time the card could take;
@@ -16,7 +16,16 @@ Phases, in order; any failure exits non-zero before the last line:
      norm, and every kernel's launch count over the 5 steps (all > 0);
   5. one step's loss terms with the kernels against the same step with every
      plain version, from the same weights, batch and noise;
-  6. one JSON line describing every kernel, then the result line.
+  6. the full-width inference path (ResNet18, 640x192, f32 with TF32 off,
+     shared_encoder, frozen IFRNet-S, random weights from a seed, batch 4,
+     uint8 frames from a numpy seed): single-frame `predict_disps` with flip
+     post-processing, then multi-frame `predict_disps_mf`, each 2 warm-up and
+     10 timed batches; the table-sample launches of the multi-frame run
+     (> 0); its disparities with the kernels against every plain version
+     (max abs error 1e-5); the KITTI eigen protocol over the timed
+     predictions against synthetic ground truths (finite; random weights,
+     so the numbers say nothing of accuracy);
+  7. one JSON line describing every kernel, then the result line.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import time
 import numpy as np
 
 B, H, W = 10, 192, 640
+BI = 4  # the evaluation entry points' default batch
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_FLOP_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 
@@ -204,6 +214,45 @@ def kernel_phase(device):
         8.0 * ct1.numel(), lib,
     ) | {"shape": f"ct {tuple(ct1.shape)} f32, zeros mode"}
     out["bilinear_splat"] = main | {"variants": [sadc]}
+
+    # kernel 5: the fusion table warp's forward at level 0 (64 channels at
+    # half resolution), on the training step (60 uses of 30 planes, bf16) and
+    # on the multi-frame inference path (8 uses of 12 planes, f32)
+    from mono_vifi_tpu_torch.ops.cuda import fwarp as FW
+
+    variants = []
+    for b, uses, dt in ((B, TABLE_USES, torch.bfloat16), (BI, (0, 2), torch.float32)):
+        U, N = 3 * b, len(uses) * b
+        ids = torch.tensor([q * b + j for q in uses for j in range(b)],
+                           dtype=torch.int32, device=device)
+        table = torch.randn((U, C, h, w), generator=gen, device=device).to(dt)
+        gx, gy = sampling.flow_to_grid(smooth_flow(gen, N, h, w, 10.0, 4.0, device))
+        f = [t.contiguous() for t in sampling.border_factors((h, w), gx, gy)]
+        k = FW.bilinear_sample_table(table, ids, *f)
+        p = FW.bilinear_sample_table_plain(table, ids, *f)
+        err = (k.float() - p.float()).abs().max().item()
+        top = p.float().abs().max().item()
+        # f32: three roundings of the combine relative to the largest value;
+        # bf16: one bf16 ulp of the largest value
+        tol = 2.0**-21 * top if dt == torch.float32 else 2.0 ** (math.floor(math.log2(top)) - 7)
+        ms = time_ms(lambda: FW.bilinear_sample_table(table, ids, *f))
+        pms = time_ms(lambda: FW.bilinear_sample_table_plain(table, ids, *f), iters=5)
+        # one library call computing the same function: index_select of the
+        # used planes then grid_sample, both timed (the grid in the table's
+        # dtype, as grid_sample asks)
+        grid = torch.stack([gx, gy], -1).to(dt)
+        lib = time_ms(lambda: F.grid_sample(table.index_select(0, ids.long()), grid,
+                                            "bilinear", "border", True))
+        esize = table.element_size()
+        used = len(set(ids.tolist()))
+        nbytes = k.numel() * esize + 6 * N * h * w * 4 + used * C * h * w * esize + N * 4
+        variants.append(entry(
+            "bilinear_sample_table", "mono_vifi_tpu_torch/csrc/fwarp.cu",
+            "mono_vifi_tpu/ops/pallas/fwarp.py:47", err, tol, ms, pms, nbytes,
+            9.0 * k.numel(), lib,
+        ) | {"shape": f"{N} uses of {U} planes ({C}, {h}, {w}) {str(dt)[6:]}",
+             "path": "training step" if dt == torch.bfloat16 else "multi-frame inference"})
+    out["bilinear_sample_table"] = variants[0] | {"variants": variants[1:]}
     return out
 
 
@@ -288,6 +337,76 @@ def step_phase(device):
     return launches, dt / 5 * 1e3
 
 
+def inference_phase(device):
+    """Phase 6: single- and multi-frame inference through the entry
+    modules' predict functions, timed, counted and checked."""
+    import torch
+
+    from mono_vifi_tpu_torch import evaluation
+    from mono_vifi_tpu_torch import evaluate_depth as ED
+    from mono_vifi_tpu_torch import evaluate_depth_mf as EDM
+    from mono_vifi_tpu_torch.config import Options
+    from mono_vifi_tpu_torch.ops import cuda
+    from mono_vifi_tpu_torch.training.factory import build_bundle
+    from mono_vifi_tpu_torch.training.monovifi import multi_frame_disp
+
+    cfg = Options(height=H, width=W, compute_dtype="float32",
+                  fuse_model_type="shared_encoder", vfi_test_scale="small")
+    bundle = build_bundle(cfg, seed=0, device=device, for_training=False)
+    rng = np.random.default_rng(2)
+    names = ("color_n1", "color_0", "color_p1")
+    batches = [{k: rng.integers(0, 256, (BI, H, W, 3), dtype=np.uint8) for k in names}
+               for _ in range(12)]
+    n_frames = 10 * BI
+
+    def timed(label, run):
+        """2 warm-up batches, then 10 timed and counted -> (predictions,
+        launches of the timed batches)."""
+        run(batches[:2])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        pred = run(batches[2:])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(cuda.LAUNCHES)
+        log(f"inference {label}: {dt / 10 * 1e3:.2f} ms/batch of {BI}, "
+            f"{n_frames / dt:.2f} frames/s, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches {launches}")
+        if pred.shape != (n_frames, H, W) or not np.isfinite(pred).all():
+            raise AssertionError(f"{label}: predictions {pred.shape} not finite")
+        return pred, launches
+
+    sf_args = ED.eval_args(["--post_process"])
+    pred_sf, _ = timed("single-frame (flip post-processing)",
+                       lambda bs: ED.predict_disps(sf_args, bundle, (b["color_0"] for b in bs)))
+    mf_args = EDM.eval_args([])
+    pred, launches = timed("multi-frame", lambda bs: EDM.predict_disps_mf(mf_args, bundle, bs))
+    if launches["bilinear_sample_table"] <= 0:
+        raise AssertionError("bilinear_sample_table not launched on the multi-frame path")
+
+    imgs = [ED.to_device_images(batches[2][k], device) for k in names]
+    dk = multi_frame_disp(bundle, *imgs)
+    with cuda.plain_versions():
+        dp = multi_frame_disp(bundle, *imgs)
+    err = (dk - dp).abs().max().item()
+    log(f"multi-frame disparity, kernels vs plain: max abs error {err:.3e} (tol 1e-5)")
+    if not err <= 1e-5:
+        raise AssertionError(f"multi-frame disparities differ: {err}")
+
+    gts = [rng.uniform(1.0, 80.0, (375, 1242)).astype(np.float32) for _ in range(n_frames)]
+    for g in gts:
+        g[rng.random(g.shape) < 0.8] = 0.0  # sparse, like projected lidar
+    for label, p in (("single-frame", pred_sf), ("multi-frame", pred)):
+        log(f"KITTI eigen protocol, {label} predictions (random weights and synthetic "
+            "ground truths: the numbers say nothing of accuracy):")
+        metrics = evaluation.evaluate_kitti(p, gts, "eigen", printer=log)
+        if not all(math.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"non-finite {label} metrics {metrics}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -313,9 +432,11 @@ def main() -> int:
 
     kernels = kernel_phase(device)
     launches, _ = step_phase(device)
+    inference = inference_phase(device)
     for name, e in kernels.items():
         for v in [e] + e.get("variants", []):
-            v["launches"] = launches[name]
+            path = inference if v.get("path") == "multi-frame inference" else launches
+            v["launches"] = path[name]
     log(json.dumps({"kernels": list(kernels.values())}))
     log(card)
     log(json.dumps({"ok": True, "device": {

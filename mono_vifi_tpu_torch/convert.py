@@ -146,9 +146,9 @@ def fusion_module(params, num_levels: int = 5) -> dict:
 
 
 def bundle_state_dicts(params, batch_stats=None, vfi_params=None,
-                       scales=(0,)) -> dict[str, dict]:
+                       scales=(0,), vfi_test_params=None) -> dict[str, dict]:
     """{role: state_dict} for every role present in the JAX `params` tree
-    (and `vfi_train` from `vfi_params`)."""
+    (and `vfi_train` / `vfi_test` from `vfi_params` / `vfi_test_params`)."""
     bs = batch_stats or {}
     out = {}
     for role in ("encoder", "encoder_mf", "pose_encoder"):
@@ -163,11 +163,17 @@ def bundle_state_dicts(params, batch_stats=None, vfi_params=None,
         out["fusion_module"] = fusion_module(params["fusion_module"])
     if vfi_params is not None:
         out["vfi_train"] = ifrnet(vfi_params)
+    if vfi_test_params is not None:
+        out["vfi_test"] = ifrnet(vfi_test_params)
     return out
 
 
-def load_into_bundle(bundle, params, batch_stats, vfi_params=None) -> None:
-    """Copy JAX weights into a ModelBundle, role by role (strict keys)."""
+def load_into_bundle(bundle, params, batch_stats, vfi_params=None,
+                     vfi_test_params=None) -> None:
+    """Copy JAX weights into a ModelBundle, role by role (strict keys);
+    roles an evaluation bundle leaves out (the pose roles) are skipped."""
     scales = tuple(range(bundle.cfg.num_scales))
-    for role, sd in bundle_state_dicts(params, batch_stats, vfi_params, scales).items():
-        bundle.role(role).load_state_dict(sd, strict=True)
+    sds = bundle_state_dicts(params, batch_stats, vfi_params, scales, vfi_test_params)
+    for role, sd in sds.items():
+        if role == "depth_mf" or hasattr(bundle, role):
+            bundle.role(role).load_state_dict(sd, strict=True)

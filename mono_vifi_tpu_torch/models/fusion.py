@@ -116,12 +116,15 @@ class FusionModule(nn.Module):
         `flows` = (flow_0_n1, flow_0_p1), (B, 2, H, W) f32, `merge_mask`
         (B, 1, H, W).
 
-        `warp_table` = (unique pyramid, ids): the training path. Each level
-        of the unique pyramid holds the U distinct source maps, and warp use
-        k (first B: previous frames, next B: next frames) reads unique[ids[k]]
-        through the frozen-grid Function, whose backward (the splat kernel)
-        sums each unique map's uses. `features[0]` and `features[2]` are then
-        unused. Values equal those of the plain path."""
+        `warp_table` = (unique pyramid, ids): the training path, and the
+        multi-frame inference path (under torch.no_grad(), where the
+        pyramid is the encoder's 3B stack itself). Each level of the unique
+        pyramid holds the U distinct source maps, and warp use k (first B:
+        previous frames, next B: next frames) reads unique[ids[k]] through
+        the frozen-grid Function: its forward is the table-sample kernel,
+        its backward (the splat kernel) sums each unique map's uses.
+        `features[0]` and `features[2]` are then unused. Values equal those
+        of the plain path."""
         feats_n1, feats_0, feats_p1 = features
         flow_n1, flow_p1 = flows
         B = flow_n1.shape[0]

@@ -16,7 +16,8 @@ import contextlib
 
 import torch
 
-KERNELS = ("bilinear_taps", "ssim_l1_fwd", "ssim_l1_bwd", "bilinear_splat")
+KERNELS = ("bilinear_taps", "ssim_l1_fwd", "ssim_l1_bwd", "bilinear_splat",
+           "bilinear_sample_table")
 LAUNCHES = {name: 0 for name in KERNELS}
 
 _plain = False

@@ -1,7 +1,8 @@
 """Kernel 4, `bilinear_splat` (csrc/splat.cu): the image adjoint of
 bilinear sampling, replacing the TPU splat kernels of
 mono_vifi_tpu/ops/pallas/splat.py, and `grid_sample_frozen_grid`, the
-sampling Function whose forward is kernel 1 and whose backward is kernel 4.
+sampling Function whose forward is kernel 5 (with a use -> plane table) or
+kernel 1 (without) and whose backward is kernel 4.
 """
 
 from __future__ import annotations
@@ -9,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from mono_vifi_tpu_torch.ops import cuda
+from mono_vifi_tpu_torch.ops.cuda.fwarp import bilinear_sample_table
 from mono_vifi_tpu_torch.ops.cuda.warp import bilinear_taps
 from mono_vifi_tpu_torch.ops.sampling import combine_taps, factors
 
@@ -77,17 +79,20 @@ def bilinear_splat(ct, ly, lx, a0, a1, c0, c1, out_hw, ids=None,
 
 
 class _FrozenGridSample(torch.autograd.Function):
-    """Forward: taps (kernel 1) + combine. Backward: splat (kernel 4) to the
+    """Forward: with a use -> plane table, the table sample (kernel 5);
+    without, taps (kernel 1) + combine. Backward: splat (kernel 4) to the
     image only; the grid is frozen."""
 
     @staticmethod
     def forward(ctx, img, ly, lx, a0, a1, c0, c1, ids):
-        src = img if ids is None else img.index_select(0, ids.long())
-        out = combine_taps(bilinear_taps(src, ly, lx), a0, a1, c0, c1)
+        if ids is None:
+            out = combine_taps(bilinear_taps(img, ly, lx), a0, a1, c0, c1).to(img.dtype)
+        else:
+            out = bilinear_sample_table(img, ids, ly, lx, a0, a1, c0, c1)
         ctx.save_for_backward(ly, lx, a0, a1, c0, c1, ids)
         ctx.img_shape = img.shape
         ctx.img_dtype = img.dtype
-        return out.to(img.dtype)
+        return out
 
     @staticmethod
     def backward(ctx, ct):

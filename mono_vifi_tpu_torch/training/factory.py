@@ -2,7 +2,8 @@
 
 Roles follow the reference trainer (train.py:142-227): encoder / depth /
 [encoder_mf / depth_mf] / fusion_module / pose_encoder / pose, plus the
-frozen training IFRNet. Sharing modes (train.py:170-179):
+frozen IFRNets: `vfi_train` (synthesis in the training step) and `vfi_test`
+(the multi-frame inference flows). Sharing modes (train.py:170-179):
   shared_all:     depth_mf IS depth (one module, one set of parameters)
   shared_encoder: encoder shared, depth_mf a separate copy of depth
   separate_all:   encoder_mf and depth_mf separate copies
@@ -21,14 +22,13 @@ from mono_vifi_tpu_torch.models import fusion, ifrnet, monodepth2, posenet
 
 def resolve_device(device=None) -> torch.device:
     """The entry points' device: CUDA unless the caller names another. With
-    no card and no explicit device this raises instead of using the CPU."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    no card, CUDA (named or by default) raises instead of using the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device available; pass device='cpu' to run on the CPU"
         )
-    return torch.device("cuda")
+    return dev
 
 
 def compute_dtype(cfg: Options) -> torch.dtype:
@@ -36,10 +36,14 @@ def compute_dtype(cfg: Options) -> torch.dtype:
 
 
 class ModelBundle(nn.Module):
-    """All modules of one training run. Trainable roles are submodules; the
-    frozen VFI network has requires_grad off."""
+    """All modules of one training run, or of one evaluation. Trainable
+    roles are submodules; the frozen VFI networks have requires_grad off.
 
-    def __init__(self, cfg: Options):
+    An evaluation bundle (`for_training=False`) leaves out the pose roles and
+    `vfi_train`. `vfi_test` is built at `cfg.vfi_test_scale`; at "large" in a
+    training bundle it is `vfi_train` itself (evaluate_depth_mf.py:90-91)."""
+
+    def __init__(self, cfg: Options, for_training: bool = True):
         super().__init__()
         if cfg.backbone != "ResNet18":
             raise ValueError(f"backbone {cfg.backbone} is not ported yet")
@@ -57,10 +61,19 @@ class ModelBundle(nn.Module):
         if cfg.fuse_model_type == "separate_all":
             self.encoder_mf = copy.deepcopy(self.encoder)
         self.fusion_module = fusion.FusionModule(self.num_ch_enc, dtype=dt)
-        if cfg.use_pose_net:
+        if for_training and cfg.use_pose_net:
             self.pose_encoder = posenet.PoseEncoder(cfg.num_layers, dt)
             self.pose = posenet.PoseDecoder(self.pose_encoder.num_ch_enc[-1], dtype=dt)
-        self.vfi_train = ifrnet.IFRNet(cfg.vfi_train_scale, dt).requires_grad_(False)
+        if for_training:
+            self.vfi_train = ifrnet.IFRNet(cfg.vfi_train_scale, dt).requires_grad_(False)
+        if for_training and cfg.vfi_test_scale == cfg.vfi_train_scale == "large":
+            self.vfi_test = self.vfi_train
+        else:
+            self.vfi_test = ifrnet.IFRNet(cfg.vfi_test_scale, dt).requires_grad_(False)
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
 
     def role(self, name: str) -> nn.Module:
         """A role's module; depth_mf resolves to depth under shared_all."""
@@ -74,11 +87,12 @@ class ModelBundle(nn.Module):
         return {n: getattr(self, n) for n in names if hasattr(self, n)}
 
 
-def build_bundle(cfg: Options, seed: int = 0, device=None) -> ModelBundle:
+def build_bundle(cfg: Options, seed: int = 0, device=None,
+                 for_training: bool = True) -> ModelBundle:
     """Random-init every module from `seed` (torch's default initializers),
     without touching the global RNG, and move the bundle to `device`."""
     device = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        bundle = ModelBundle(cfg)
+        bundle = ModelBundle(cfg, for_training)
     return bundle.to(device)

@@ -13,6 +13,9 @@ call, as in the JAX package.
 
 Images travel channel-planar (B, C, H, W). The batch arrives in the JAX
 package's format (NHWC images, uint8 or f32) and is converted once.
+
+The eval forwards `single_frame_disp` and `multi_frame_disp` (reference
+evaluate_depth.py / evaluate_depth_mf.py) close the file.
 """
 
 from __future__ import annotations
@@ -385,3 +388,40 @@ def create_train_state(cfg: Options, seed: int = 0, steps_per_epoch: int = 1000,
         step=0, bundle=bundle, optimizer=make_optimizer(cfg, params),
         schedule=lr_schedule(cfg, steps_per_epoch), params=params,
     )
+
+
+# -------------------------------------------------------------- eval forward
+def single_frame_disp(bundle: ModelBundle, img) -> torch.Tensor:
+    """Eval-mode disparity (B, 1, H, W) f32 of NCHW images on the bundle's
+    device (evaluate_depth.py pipeline)."""
+    bundle.eval()
+    with torch.no_grad():
+        return bundle.depth(bundle.encoder(img))[0].float()
+
+
+def multi_frame_disp(bundle: ModelBundle, img_n1, img_0, img_p1) -> torch.Tensor:
+    """Eval-mode fused disparity (B, 1, H, W) f32 (evaluate_depth_mf.py
+    :179-188): frozen `vfi_test` flows (only_flow), one encoder pass over
+    the 3B stack, fusion, then depth_mf (depth where there is none).
+
+    The fusion warp reads the neighbours' maps straight out of the stacked
+    pyramid through a use -> plane table (uses 0..B-1 read planes 0..B-1,
+    uses B..2B-1 read planes 2B..3B-1), so the two neighbour pyramids are
+    never concatenated; the values equal those of the plain path."""
+    B = img_0.shape[0]
+    bundle.eval()
+    with torch.no_grad():
+        embt = torch.full((B, 1, 1, 1), 0.5, device=img_0.device)
+        flows = bundle.vfi_test(img_n1, img_p1, embt, only_flow=True)
+        # encoder_mf under separate_all, else the shared encoder
+        encoder = getattr(bundle, "encoder_mf", bundle.encoder)
+        feats = encoder(torch.cat([img_n1, img_0, img_p1], 0))
+        ids = torch.cat([torch.arange(B), torch.arange(2 * B, 3 * B)]).to(
+            device=img_0.device, dtype=torch.int32)
+        fused = bundle.fusion_module(
+            [None, [f[B:2 * B] for f in feats], None],
+            (flows["flow0"].float(), flows["flow1"].float()), flows["mask"].float(),
+            warp_table=(feats, ids),
+        )
+        depth_mf = getattr(bundle, "depth_mf", bundle.depth)
+        return depth_mf(fused)[0].float()
