@@ -9,13 +9,18 @@ Phases, in order; any failure exits non-zero before the last line:
   3. each kernel at the shapes its paths give it against its plain PyTorch
      version on the same inputs (max error vs a stated tolerance), with the
      kernel's, the plain version's and, where one exists, a single PyTorch
-     call's time (CUDA events), and the least time the card could take;
+     call's time (CUDA events), and the least time the card could take: the
+     fused sample at the training step's five shapes (bit for bit), its grid
+     gradient, the photometric map and its one-launch gradient (also at
+     ragged shapes and H = 3 / W = 3), the splat and the table sample;
   4. the full-width training step (ResNet18, 640x192, batch 10, frozen
      IFRNet-L, affine branch, shared_encoder, bf16 compute, random weights
      from a seed): 2 warm-up and 5 timed steps, finite loss and gradient
-     norm, and every kernel's launch count over the 5 steps (all > 0);
-  5. one step's loss terms with the kernels against the same step with every
-     plain version, from the same weights, batch and noise;
+     norm, and every kernel's launch count over the 5 steps (all > 0), also
+     by shape;
+  5. one step's loss terms and the gradient norm of the pose net's
+     parameters with the kernels against the same step with every plain
+     version, from the same weights, batch and noise (rel 1e-3);
   6. the full-width inference path (ResNet18, 640x192, f32 with TF32 off,
      shared_encoder, frozen IFRNet-S, random weights from a seed, batch 4,
      uint8 frames from a numpy seed): single-frame `predict_disps` with flip
@@ -109,29 +114,75 @@ def kernel_phase(device):
     gen = torch.Generator(device=device).manual_seed(0)
     out = {}
 
-    # kernel 1: the photometric warp of 6B targets x 2 sources, 3 channels
-    N = 12 * B
-    img = torch.rand((N, 3, H, W), generator=gen, device=device)
-    gx, gy = sampling.flow_to_grid(smooth_flow(gen, N, H, W, 40.0, 10.0, device))
-    ly, lx, a0, a1, c0, c1 = sampling.border_factors((H, W), gx, gy)
-    grid = torch.stack([gx, gy], -1)
-    lib_ms = time_ms(lambda: F.grid_sample(img, grid, "bilinear", "border", True))
+    # kernel 1: the fused sample at the five shapes of the training step
+    # (one launch each per step), and its grid gradient
+    def sample_inputs(n, c, mode):
+        img = torch.rand((n, c, H, W), generator=gen, device=device)
+        if mode == "zeros":
+            angle = (torch.rand((n,), generator=gen, device=device) - 0.5) * 10.0
+            gx, gy = rotation_grid(angle, H, W)
+        else:
+            gx, gy = sampling.flow_to_grid(smooth_flow(gen, n, H, W, 40.0, 10.0, device))
+        return img, gx.contiguous(), gy.contiguous()
+
     variants = []
-    for td in (torch.bfloat16, torch.float32):
-        k = WP.bilinear_taps(img, ly, lx, td)
-        p = WP.bilinear_taps_plain(img, ly, lx, td)
+    for n, c, mode, td, path in (
+        (12 * B, 3, "border", torch.bfloat16, "photometric warp, 6B targets x 2 sources"),
+        (12 * B, 3, "border", torch.float32, None),  # the same shape, f32 taps
+        (6 * B, 3, "border", torch.bfloat16, "photometric warp, 3B affine targets x 2"),
+        (4 * B, 3, "border", torch.bfloat16, "IFRNet synthesis, 2B pairs x 2 frames"),
+        (2 * B, 3, "zeros", torch.float32, "affine rotation of the 2B synthesized frames"),
+        (3 * B, 1, "zeros", torch.float32, "SADC depth restore (forward)"),
+    ):
+        img, gx, gy = sample_inputs(n, c, mode)
+        k = WP.bilinear_sample(img, gx, gy, mode, tap_dtype=td)
+        p = WP.bilinear_sample_plain(img, gx, gy, mode, tap_dtype=td)
         err = (k.float() - p.float()).abs().max().item()
-        ms = time_ms(lambda: WP.bilinear_taps(img, ly, lx, td))
-        pms = time_ms(lambda: WP.bilinear_taps_plain(img, ly, lx, td), iters=5)
-        esize = 2 if td == torch.bfloat16 else 4
-        nbytes = img.numel() * 4 + 2 * ly.numel() * 4 + 4 * img.numel() * esize
+        ms = time_ms(lambda: WP.bilinear_sample(img, gx, gy, mode, tap_dtype=td))
+        pms = time_ms(lambda: WP.bilinear_sample_plain(img, gx, gy, mode, tap_dtype=td),
+                      iters=5)
+        grid = torch.stack([gx, gy], -1)
+        lib = time_ms(lambda: F.grid_sample(img, grid, "bilinear", mode, True))
+        nbytes = 2 * img.numel() * 4 + 2 * gx.numel() * 4
+        # the weights once per pixel (~30 operations), six products and three
+        # sums per channel
+        flops = 30.0 * gx.numel() + 9.0 * img.numel()
         variants.append(entry(
-            "bilinear_taps", "mono_vifi_tpu_torch/csrc/warp.cu",
-            "mono_vifi_tpu/ops/pallas/warp.py:139" if esize == 2
+            "bilinear_sample", "mono_vifi_tpu_torch/csrc/warp.cu",
+            "mono_vifi_tpu/ops/pallas/warp.py:139" if td == torch.bfloat16
             else "mono_vifi_tpu/ops/pallas/warp.py:59",
-            err, 0.0, ms, pms, nbytes, 0.0, lib_ms,
-        ) | {"shape": f"img {tuple(img.shape)} f32 -> taps {str(td)[6:]}"})
-    out["bilinear_taps"] = variants[0] | {"variants": variants[1:]}
+            err, 0.0, ms, pms, nbytes, flops, lib,
+        ) | {"shape": f"img {tuple(img.shape)} f32, {str(td)[6:]} taps, {mode}"}
+            | ({"path": path, "launch_shape": tuple(img.shape)} if path else {}))
+    out["bilinear_sample"] = variants[0] | {"variants": variants[1:]}
+
+    # its grid gradient at the 6B photometric shape, bf16 taps as there
+    img, gx, gy = sample_inputs(12 * B, 3, "border")
+    ct = torch.randn(img.shape, generator=gen, device=device)
+    td = torch.bfloat16
+    kx, ky = WP.bilinear_sample_bwd(img, gx, gy, ct, tap_dtype=td)
+    px, py = WP.bilinear_sample_grid_bwd_plain(img, gx, gy, ct, tap_dtype=td)
+    err = max((kx - px).abs().max().item(), (ky - py).abs().max().item())
+    # the channel sums run in another order than autograd's reductions: four
+    # f32 roundings of each of the C terms, each at most max|ct| * max|img|,
+    # scaled by the unnormalize's (W - 1) / 2
+    tol = 4 * 3 * 2.0**-23 * (W - 1) / 2 * ct.abs().max().item() * img.abs().max().item()
+    ms = time_ms(lambda: WP.bilinear_sample_bwd(img, gx, gy, ct, tap_dtype=td))
+    pms = time_ms(lambda: WP.bilinear_sample_grid_bwd_plain(img, gx, gy, ct, tap_dtype=td),
+                  iters=5)
+    grid = torch.stack([gx, gy], -1)
+    lib = time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+        ct, img, grid, 0, 1, True, [False, True]))
+    out["bilinear_sample_bwd"] = entry(
+        "bilinear_sample_bwd", "mono_vifi_tpu_torch/csrc/warp.cu",
+        "none: the port's own gradient kernel (the JAX side took the grid's "
+        "gradient of mono_vifi_tpu/ops/pallas/warp.py:258 in XLA)",
+        err, tol, ms, pms, 2 * img.numel() * 4 + 4 * gx.numel() * 4,
+        30.0 * gx.numel() + 16.0 * img.numel(), lib,
+    ) | {"shape": f"img, ct {tuple(img.shape)} f32, bf16 taps, border",
+         "path": "photometric warp, 6B targets x 2 sources",
+         "launch_shape": tuple(img.shape)}
+    del img, gx, gy, ct, grid, kx, ky, px, py
 
     # kernels 2 and 3: the photometric map over the 6B-target stack
     N = 6 * B
@@ -146,19 +197,29 @@ def kernel_phase(device):
         "ssim_l1_fwd", "mono_vifi_tpu_torch/csrc/photometric.cu",
         "mono_vifi_tpu/ops/pallas/photometric.py:90", err, 1e-5, ms, pms,
         (2 * x.numel() + k.numel()) * 4, 80.0 * x.numel(), None,
-    )
-    ct = torch.rand((N, H, W), generator=gen, device=device)
-    k = PM.ssim_l1_bwd(x, y, ct)
-    p = PM.ssim_l1_bwd_plain(x, y, ct)
-    scale = p.abs().max().item()
-    err = (k - p).abs().max().item()
-    ms = time_ms(lambda: PM.ssim_l1_bwd(x, y, ct))
-    pms = time_ms(lambda: PM.ssim_l1_bwd_plain(x, y, ct), iters=5)
-    out["ssim_l1_bwd"] = entry(
-        "ssim_l1_bwd", "mono_vifi_tpu_torch/csrc/photometric.cu",
-        "mono_vifi_tpu/ops/pallas/photometric.py:113", err, 1e-4 * scale, ms, pms,
-        (3 * x.numel() + ct.numel()) * 4, 200.0 * x.numel(), None,
-    )
+    ) | {"shape": f"x, y {tuple(x.shape)} f32", "launch_shape": tuple(x.shape)}
+    # the one-launch backward at the path's shape, then ragged shapes (H, W
+    # not multiples of the 16x32 tile; H = 3 and W = 3, where the reflect
+    # fold reaches across the whole edge)
+    variants = []
+    for n, h, w in ((N, H, W), (8, 187, 629), (8, 3, W), (8, H, 3)):
+        xs = x[:n, :, :h, :w].contiguous()
+        ys = y[:n, :, :h, :w].contiguous()
+        ct = torch.rand((n,) + xs.shape[2:], generator=gen, device=device)
+        k = PM.ssim_l1_bwd(xs, ys, ct)
+        p = PM.ssim_l1_bwd_plain(xs, ys, ct)
+        scale = p.abs().max().item()
+        err = (k - p).abs().max().item()
+        ms = time_ms(lambda: PM.ssim_l1_bwd(xs, ys, ct))
+        pms = time_ms(lambda: PM.ssim_l1_bwd_plain(xs, ys, ct), iters=5)
+        variants.append(entry(
+            "ssim_l1_bwd", "mono_vifi_tpu_torch/csrc/photometric.cu",
+            "mono_vifi_tpu/ops/pallas/photometric.py:113", err, 1e-4 * scale, ms, pms,
+            (3 * xs.numel() + ct.numel()) * 4, 200.0 * xs.numel(), None,
+        ) | {"shape": f"x, y {tuple(xs.shape)} f32, one launch"}
+            | ({"launch_shape": tuple(xs.shape)} if n == N else {}))
+    out["ssim_l1_bwd"] = variants[0] | {"variants": variants[1:]}
+    del x, y, xs, ys
 
     # kernel 4: the fusion warps' backward at level 0 (60 uses of 30 unique
     # 64-channel maps at half resolution, bf16 cotangent), then the SADC
@@ -189,7 +250,8 @@ def kernel_phase(device):
         "bilinear_splat", "mono_vifi_tpu_torch/csrc/splat.cu",
         "mono_vifi_tpu/ops/pallas/splat.py:77", err, tol, ms, pms, nbytes,
         8.0 * ctb.numel(), lib,
-    ) | {"shape": f"ct {tuple(ctb.shape)} bf16, {U} unique planes"}
+    ) | {"shape": f"ct {tuple(ctb.shape)} bf16, {U} unique planes",
+         "launch_shape": tuple(ctb.shape)}
 
     N = 3 * B
     angle = (torch.rand((N,), generator=gen, device=device) - 0.5) * 10.0
@@ -212,7 +274,7 @@ def kernel_phase(device):
         "mono_vifi_tpu/ops/pallas/splat.py:166", err, 1e-5 * p.abs().max().item(),
         ms, pms, ct1.numel() * 4 + 6 * ly.numel() * 4 + ct1.numel() * 4,
         8.0 * ct1.numel(), lib,
-    ) | {"shape": f"ct {tuple(ct1.shape)} f32, zeros mode"}
+    ) | {"shape": f"ct {tuple(ct1.shape)} f32, zeros mode", "launch_shape": tuple(ct1.shape)}
     out["bilinear_splat"] = main | {"variants": [sadc]}
 
     # kernel 5: the fusion table warp's forward at level 0 (64 channels at
@@ -251,7 +313,8 @@ def kernel_phase(device):
             "mono_vifi_tpu/ops/pallas/fwarp.py:47", err, tol, ms, pms, nbytes,
             9.0 * k.numel(), lib,
         ) | {"shape": f"{N} uses of {U} planes ({C}, {h}, {w}) {str(dt)[6:]}",
-             "path": "training step" if dt == torch.bfloat16 else "multi-frame inference"})
+             "path": "training step" if dt == torch.bfloat16 else "multi-frame inference"}
+            | ({"launch_shape": tuple(table.shape)} if dt == torch.bfloat16 else {}))
     out["bilinear_sample_table"] = variants[0] | {"variants": variants[1:]}
     return out
 
@@ -310,31 +373,47 @@ def step_phase(device):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(cuda.LAUNCHES)
+    shapes = dict(cuda.LAUNCH_SHAPES)
     loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
     log(f"step: {dt / 5 * 1e3:.1f} ms/step, {B * 5 / dt:.2f} samples/s, loss {loss:.4f}, "
         f"grad_norm {gnorm:.4f}, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log(f"launches over 5 steps: {launches}")
+    for (name, shape), count in sorted(shapes.items()):
+        log(f"  {name} at {shape}: {count}")
     if not (math.isfinite(loss) and math.isfinite(gnorm)):
         raise AssertionError(f"non-finite step: loss {loss}, grad_norm {gnorm}")
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
 
-    # phase 5: same weights, batch and noise, kernels vs every plain version
+    # phase 5: same weights, batch and noise, kernels vs every plain version:
+    # the loss terms, and the gradient norm of the pose net's parameters,
+    # which reaches the loss through the photometric warps' grid gradient
     noise = {k: torch.randn(s, generator=gen, device=device)
              for k, s in step.noise_shapes(B, H, W).items()}
-    with torch.no_grad():
-        _, mk = step.loss_fn(batch, noise=noise)
-        with cuda.plain_versions():
-            _, mp = step.loss_fn(batch, noise=noise)
-    for term in ("loss", "loss_base", "loss_dc", "loss_sadc"):
-        a, b = float(mk[term]), float(mp[term])
+    pose_params = [q for role in ("pose_encoder", "pose")
+                   for q in state.bundle.role(role).parameters()]
+
+    terms = ("loss", "loss_base", "loss_dc", "loss_sadc")
+
+    def loss_terms_and_pose_grad_norm():
+        loss, m = step.loss_fn(batch, noise=noise)
+        grads = torch.autograd.grad(loss, pose_params)
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+        return [float(m[t].detach()) for t in terms] + [float(norm)]
+
+    got = loss_terms_and_pose_grad_norm()
+    with cuda.plain_versions():
+        ref = loss_terms_and_pose_grad_norm()
+    pairs = zip(terms + ("pose-net gradient norm",), got, ref)
+    for term, a, b in pairs:
         rel = abs(a - b) / max(abs(b), 1e-12)
         log(f"whole step {term}: kernels {a:.6f} plain {b:.6f} rel {rel:.2e} (tol 1e-3)")
-        if not rel <= 1e-3:
+        if not (math.isfinite(a) and rel <= 1e-3):
             raise AssertionError(f"whole-step {term} differs: {a} vs {b}")
-    return launches, dt / 5 * 1e3
+    return launches, shapes
 
 
 def inference_phase(device):
@@ -431,12 +510,14 @@ def main() -> int:
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {build.last_build_seconds:.1f} s)")
 
     kernels = kernel_phase(device)
-    launches, _ = step_phase(device)
+    launches, shapes = step_phase(device)
     inference = inference_phase(device)
     for name, e in kernels.items():
         for v in [e] + e.get("variants", []):
             path = inference if v.get("path") == "multi-frame inference" else launches
             v["launches"] = path[name]
+            if "launch_shape" in v:
+                v["launches_at_shape"] = shapes.get((name, v.pop("launch_shape")), 0)
     log(json.dumps({"kernels": list(kernels.values())}))
     log(card)
     log(json.dumps({"ok": True, "device": {

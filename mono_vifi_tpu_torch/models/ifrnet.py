@@ -5,7 +5,7 @@ A 4-level conv pyramid encodes both frames; four decoders refine the
 bidirectional flows coarse to fine, warping the encoder features of both
 frames by the current flows. The full-resolution head gives two flows and a
 merge mask. The feature warps use the plain differentiable warp; the two
-full-resolution image warps go through the `bilinear_taps` kernel.
+full-resolution image warps go through the `bilinear_sample` kernel.
 Sampling grids are built in f32 whatever the compute dtype.
 """
 

@@ -7,18 +7,22 @@ exception is `plain_versions()`, a context that reference comparisons use to
 run the plain versions on the card on purpose.
 
 Every wrapper adds one to its entry of `LAUNCHES` where it launches its
-kernel, and nowhere else, so a run can show which kernels it went through.
+kernel, and nowhere else, so a run can show which kernels it went through;
+`LAUNCH_SHAPES` counts the same launches by kernel and the shape of the
+kernel's first tensor argument.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 
 import torch
 
-KERNELS = ("bilinear_taps", "ssim_l1_fwd", "ssim_l1_bwd", "bilinear_splat",
-           "bilinear_sample_table")
+KERNELS = ("bilinear_sample", "bilinear_sample_bwd", "ssim_l1_fwd", "ssim_l1_bwd",
+           "bilinear_splat", "bilinear_sample_table")
 LAUNCHES = {name: 0 for name in KERNELS}
+LAUNCH_SHAPES: collections.Counter = collections.Counter()
 
 _plain = False
 
@@ -26,6 +30,7 @@ _plain = False
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCH_SHAPES.clear()
 
 
 @contextlib.contextmanager
@@ -64,9 +69,10 @@ def check(t: torch.Tensor, name: str, dtypes, ndim: int, device) -> None:
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def launch(fn_name: str, kernel: str, *args) -> None:
+def launch(fn_name: str, kernel: str, *args, shape: tuple) -> None:
     """Call one C entry point of the kernel library on the current stream,
-    raise on a non-zero CUDA error code, and count the launch."""
+    raise on a non-zero CUDA error code, and count the launch (under
+    `shape`, that of the kernel's first tensor argument)."""
     from mono_vifi_tpu_torch.ops.cuda import build
 
     lib = build.load()
@@ -75,3 +81,4 @@ def launch(fn_name: str, kernel: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{fn_name} failed with CUDA error {err}")
     LAUNCHES[kernel] += 1
+    LAUNCH_SHAPES[kernel, tuple(shape)] += 1

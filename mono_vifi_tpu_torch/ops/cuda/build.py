@@ -29,9 +29,10 @@ LIB_NAME = "libmono_vifi_kernels.so"
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
-    "mv_bilinear_taps": [_P, _I, _P, _P, _P, _I] + [_I] * 6 + [_P],
+    "mv_bilinear_sample": [_P, _I, _I, _P, _P, _P] + [_I] * 8 + [_P],
+    "mv_bilinear_sample_bwd": [_P, _I, _I, _P, _P, _P, _P, _P] + [_I] * 7 + [_P],
     "mv_ssim_l1_fwd": [_P, _P, _P] + [_I] * 5 + [_P],
-    "mv_ssim_l1_bwd": [_P, _P, _P, _P, _P] + [_I] * 5 + [_P],
+    "mv_ssim_l1_bwd": [_P, _P, _P, _P] + [_I] * 5 + [_P],
     "mv_bilinear_splat": [_P, _I] + [_P] * 8 + [_I] * 7 + [_P],
     "mv_bilinear_sample_table": [_P, _I] + [_P] * 8 + [_I] * 7 + [_P],
 }

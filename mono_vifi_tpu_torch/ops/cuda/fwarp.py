@@ -63,6 +63,6 @@ def bilinear_sample_table(table, ids, ly, lx, a0, a1, c0, c1):
         table.data_ptr(), cuda.DTYPE_CODE[table.dtype],
         ids.data_ptr() if ids is not None else None, ly.data_ptr(), lx.data_ptr(),
         a0.data_ptr(), a1.data_ptr(), c0.data_ptr(), c1.data_ptr(), out.data_ptr(),
-        N, C, H, W, Ho, Wo, U,
+        N, C, H, W, Ho, Wo, U, shape=table.shape,
     )
     return out

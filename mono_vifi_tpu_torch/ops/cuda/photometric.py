@@ -45,12 +45,14 @@ def ssim_l1_fwd(x, y, use_ssim=True):
     cuda.launch(
         "mv_ssim_l1_fwd", "ssim_l1_fwd",
         x.data_ptr(), y.data_ptr(), out.data_ptr(), N, C, H, W, int(use_ssim),
+        shape=x.shape,
     )
     return out
 
 
 def ssim_l1_bwd(x, y, ct, use_ssim=True):
-    """Gradient of sum(ct * map(x, y)) with respect to x (N, C, H, W)."""
+    """Gradient of sum(ct * map(x, y)) with respect to x (N, C, H, W), in
+    one launch."""
     if not cuda.use_kernel(x):
         return ssim_l1_bwd_plain(x, y, ct, use_ssim)
     _check_planes(x, y)
@@ -58,16 +60,11 @@ def ssim_l1_bwd(x, y, ct, use_ssim=True):
     N, C, H, W = x.shape
     if ct.shape != (N, H, W):
         raise ValueError(f"ct {tuple(ct.shape)} does not match x {tuple(x.shape)}")
-    # scratch for the three per-pixel fields of the first launch
-    fields = torch.empty(
-        (3, N, C, H, W) if use_ssim else (1,),
-        dtype=torch.float32, device=x.device,
-    )
     dx = torch.empty_like(x)
     cuda.launch(
         "mv_ssim_l1_bwd", "ssim_l1_bwd",
-        x.data_ptr(), y.data_ptr(), ct.data_ptr(), fields.data_ptr(),
-        dx.data_ptr(), N, C, H, W, int(use_ssim),
+        x.data_ptr(), y.data_ptr(), ct.data_ptr(), dx.data_ptr(),
+        N, C, H, W, int(use_ssim), shape=x.shape,
     )
     return dx
 

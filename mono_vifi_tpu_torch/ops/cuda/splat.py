@@ -2,7 +2,7 @@
 bilinear sampling, replacing the TPU splat kernels of
 mono_vifi_tpu/ops/pallas/splat.py, and `grid_sample_frozen_grid`, the
 sampling Function whose forward is kernel 5 (with a use -> plane table) or
-kernel 1 (without) and whose backward is kernel 4.
+kernel 1, `bilinear_sample` (without), and whose backward is kernel 4.
 """
 
 from __future__ import annotations
@@ -11,8 +11,8 @@ import torch
 
 from mono_vifi_tpu_torch.ops import cuda
 from mono_vifi_tpu_torch.ops.cuda.fwarp import bilinear_sample_table
-from mono_vifi_tpu_torch.ops.cuda.warp import bilinear_taps
-from mono_vifi_tpu_torch.ops.sampling import combine_taps, factors
+from mono_vifi_tpu_torch.ops.cuda.warp import bilinear_sample
+from mono_vifi_tpu_torch.ops.sampling import factors
 
 
 def bilinear_splat_plain(ct, ly, lx, a0, a1, c0, c1, out_hw, ids=None,
@@ -73,20 +73,21 @@ def bilinear_splat(ct, ly, lx, a0, a1, c0, c1, out_hw, ids=None,
         ct.data_ptr(), cuda.DTYPE_CODE[ct.dtype], ly.data_ptr(), lx.data_ptr(),
         a0.data_ptr(), a1.data_ptr(), c0.data_ptr(), c1.data_ptr(),
         ids.data_ptr() if ids is not None else None, canvas.data_ptr(),
-        N, C, Ho, Wo, U, H, W,
+        N, C, Ho, Wo, U, H, W, shape=ct.shape,
     )
     return canvas.to(out_dtype or torch.float32)
 
 
 class _FrozenGridSample(torch.autograd.Function):
     """Forward: with a use -> plane table, the table sample (kernel 5);
-    without, taps (kernel 1) + combine. Backward: splat (kernel 4) to the
-    image only; the grid is frozen."""
+    without, the fused sample (kernel 1) at the coordinate planes.
+    Backward: splat (kernel 4) to the image only, through the factors; the
+    grid is frozen."""
 
     @staticmethod
-    def forward(ctx, img, ly, lx, a0, a1, c0, c1, ids):
+    def forward(ctx, img, gx, gy, padding_mode, ly, lx, a0, a1, c0, c1, ids):
         if ids is None:
-            out = combine_taps(bilinear_taps(img, ly, lx), a0, a1, c0, c1).to(img.dtype)
+            out = bilinear_sample(img, gx, gy, padding_mode)
         else:
             out = bilinear_sample_table(img, ids, ly, lx, a0, a1, c0, c1)
         ctx.save_for_backward(ly, lx, a0, a1, c0, c1, ids)
@@ -102,7 +103,7 @@ class _FrozenGridSample(torch.autograd.Function):
             ct.contiguous(), ly, lx, a0, a1, c0, c1, (H, W), ids, U,
             out_dtype=ctx.img_dtype,
         )
-        return (grad,) + (None,) * 7
+        return (grad,) + (None,) * 10
 
 
 def grid_sample_frozen_grid(img, gx, gy, padding_mode: str = "border", ids=None):
@@ -111,8 +112,8 @@ def grid_sample_frozen_grid(img, gx, gy, padding_mode: str = "border", ids=None)
     only. With `ids` (int32 (N,)), use k samples img[ids[k]] and the
     backward sums each plane's uses."""
     with torch.no_grad():
-        ly, lx, a0, a1, c0, c1 = factors(
-            img.shape[2:], gx.float(), gy.float(), padding_mode
-        )
+        gx, gy = gx.float().contiguous(), gy.float().contiguous()
+        ly, lx, a0, a1, c0, c1 = factors(img.shape[2:], gx, gy, padding_mode)
         a0, a1, c0, c1 = (w.contiguous() for w in (a0, a1, c0, c1))
-    return _FrozenGridSample.apply(img.contiguous(), ly, lx, a0, a1, c0, c1, ids)
+    return _FrozenGridSample.apply(img.contiguous(), gx, gy, padding_mode,
+                                   ly, lx, a0, a1, c0, c1, ids)

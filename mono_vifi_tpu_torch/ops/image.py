@@ -83,7 +83,7 @@ def rotate_bilinear(img, angle_deg, grad_via_splat: bool = False):
 
     Without `grad_via_splat` the image is treated as gradient-free (it is
     detached: the synthesized frames of the affine branch) and goes through
-    the `bilinear_taps` kernel. With it, the image's gradient comes from the
+    the `bilinear_sample` kernel. With it, the image's gradient comes from the
     `bilinear_splat` kernel (the SADC depth restore); the angles are frozen
     in both cases."""
     B, C, H, W = img.shape

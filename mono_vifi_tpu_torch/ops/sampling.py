@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from mono_vifi_tpu_torch.ops.cuda.warp import bilinear_taps, bilinear_taps_plain
+from mono_vifi_tpu_torch.ops.cuda.warp import bilinear_sample_plain, grid_sample_frozen_image
 
 
 def _unnormalize(g, size: int, align_corners: bool):
@@ -107,10 +107,9 @@ def flow_to_grid(flow):
 def grid_sample(img, grid, padding_mode: str = "border", align_corners: bool = True):
     """Bilinear sample NHWC `img` (B, H, W, C) at `grid` (B, Ho, Wo, 2),
     (x, y) order -> (B, Ho, Wo, C). Gradients reach both img and grid."""
-    B, H, W, C = img.shape
-    f = factors((H, W), grid[..., 0], grid[..., 1], padding_mode, align_corners)
-    taps = bilinear_taps_plain(img.permute(0, 3, 1, 2), f[0], f[1])
-    return combine_taps(taps, *f[2:]).to(img.dtype).permute(0, 2, 3, 1)
+    out = bilinear_sample_plain(img.permute(0, 3, 1, 2), grid[..., 0], grid[..., 1],
+                                padding_mode, align_corners)
+    return out.permute(0, 2, 3, 1)
 
 
 def warp(img, flow):
@@ -131,20 +130,15 @@ def grid_sample_table(table, ids, grid):
 def warp_planar(img, flow):
     """Differentiable border warp of (B, C, H, W) `img` by the (B, 2, H, W)
     pixel flow; taps gathered in PyTorch, combined in f32."""
-    B, C, H, W = img.shape
     gx, gy = flow_to_grid(flow)
-    f = border_factors((H, W), gx, gy)
-    taps = bilinear_taps_plain(img, f[0], f[1])
-    return combine_taps(taps, *f[2:]).to(img.dtype)
+    return bilinear_sample_plain(img, gx, gy)
 
 
 def sample_planar(img, gx, gy, padding_mode: str = "border",
                   align_corners: bool = True, tap_dtype=None):
-    """Sample (B, C, H, W) `img` at the coordinate planes through the
-    `bilinear_taps` kernel: taps in `tap_dtype` (None = img dtype), combined
-    in f32, returned in the img dtype. The grid gets a gradient; the image
-    gets none (callers pass frozen or target images)."""
-    B, C, H, W = img.shape
-    f = factors((H, W), gx, gy, padding_mode, align_corners)
-    taps = bilinear_taps(img.contiguous(), f[0], f[1], tap_dtype)
-    return combine_taps(taps, *f[2:]).to(img.dtype)
+    """Sample (B, C, H, W) `img` at the f32 coordinate planes through the
+    `bilinear_sample` kernel: taps in `tap_dtype` (None = img dtype),
+    combined in f32, returned in the img dtype. The grid gets a gradient
+    (border mode, through `bilinear_sample_bwd`); the image gets none
+    (callers pass frozen or target images)."""
+    return grid_sample_frozen_image(img, gx, gy, padding_mode, align_corners, tap_dtype)

@@ -11,8 +11,11 @@ with the host clock, then traces 3 with torch.profiler and prints per call:
 the device's busy share (kernel time over wall time), the kernel time by
 category, the port's kernels, and the 20 kernels that take the most time.
 Tracing slows the host, so the busy share is given against both the traced
-and the untraced wall time. Run from the repository root on a machine with a
-CUDA device:
+and the untraced wall time; the peak device memory of the untraced calls is
+printed beside their time. The port's kernels are told apart by the names of
+the `__global__` functions in the checkout's `mono_vifi_tpu_torch/csrc`, so
+the script reads any version of the port. Run from the repository root on
+a machine with a CUDA device:
 
     python3 profile_torch_step.py [--path train|single|multi]
 """
@@ -20,23 +23,20 @@ CUDA device:
 from __future__ import annotations
 
 import argparse
+import re
 import subprocess
 import time
 from collections import defaultdict
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from chip_smoke import B, BI, H, W, make_batch
 
-PORT_KERNELS = {
-    "taps_kernel": "bilinear_taps",
-    "::fwd_kernel": "ssim_l1_fwd",
-    "bwd_fields_kernel": "ssim_l1_bwd",
-    "bwd_combine_kernel": "ssim_l1_bwd",
-    "splat_kernel": "bilinear_splat",
-    "sample_table_kernel": "bilinear_sample_table",
-}
+# a kernel as the profiler names it: `[void ](anonymous namespace)::<name>...`
+# (the return type shows on templates only)
+KERNEL_NAME = re.compile(r"^(?:void )?\(anonymous namespace\)::(\w+)")
 CATEGORIES = (
     ("convolution", ("conv", "cudnn", "xmma", "implicit", "dgrad", "wgrad")),
     ("matmul", ("gemm", "cutlass", "nvjet")),
@@ -47,11 +47,18 @@ CATEGORIES = (
 )
 
 
-def category(name: str) -> str:
-    if "anonymous namespace" in name:
-        for key, kernel in PORT_KERNELS.items():
-            if key in name:
-                return f"port: {kernel}"
+def port_kernel_names() -> set[str]:
+    """The `__global__` functions of this checkout's kernel sources."""
+    csrc = Path(__file__).parent / "mono_vifi_tpu_torch" / "csrc"
+    return set(re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+        "\n".join(p.read_text() for p in sorted(csrc.glob("*.cu")))))
+
+
+def category(name: str, port_kernels: set[str]) -> str:
+    kernel = KERNEL_NAME.match(name)
+    if kernel and kernel.group(1) in port_kernels:
+        return f"port: {kernel.group(1)}"
     low = name.lower()
     for cat, keys in CATEGORIES:
         if any(k in low for k in keys):
@@ -110,13 +117,15 @@ def main() -> None:
     for _ in range(2):
         call()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(5):
         call()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / 5 * 1e3
     print(f"{path} untraced: {wall:.1f} ms/{unit}, {n / wall * 1e3:.2f} "
-          f"{'samples' if path == 'train' else 'frames'}/s")
+          f"{'samples' if path == 'train' else 'frames'}/s, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     calls = 3
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
@@ -138,11 +147,14 @@ def main() -> None:
           f"busy share {busy / traced:.1%} of the traced wall time, "
           f"{busy / wall:.1%} of the untraced one")
     by_cat = defaultdict(float)
+    port_kernels = port_kernel_names()
     for name, ms in by_name.items():
-        by_cat[category(name)] += ms
+        by_cat[category(name, port_kernels)] += ms
     print(f"kernel time by category (ms/{unit}):")
     for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
         print(f"  {ms:9.3f}  {ms / busy:6.1%}  {cat}")
+    port = sum(ms for cat, ms in by_cat.items() if cat.startswith("port: "))
+    print(f"port kernels: {port:.3f} ms/{unit} ({port / busy:.1%})")
     print(f"top kernels (ms/{unit}):")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:20]:
         print(f"  {ms:9.3f}  {ms / busy:6.1%}  {name[:140]}")

@@ -5,7 +5,11 @@ run it (tests/test_pallas_warp.py, tests/test_pallas_photometric.py,
 tests/test_splat.py), and against its exact XLA oracles.
 
 Tolerances (f32): taps exact (both fetch the same values; bf16 taps round
-the same way); photometric map atol 2e-6 and its gradient atol 1e-6, as
+the same way); the fused sample atol 1e-5 against the Pallas path (XLA
+combines in its own order) and bit for bit against the unfused arithmetic
+it replaced; the grid gradient atol 1e-4 against JAX (sums in another
+order, scaled by up to (size - 1) / 2); photometric map atol 2e-6 and its
+gradient atol 1e-6, as
 the JAX package's kernel tests; splat vs the exact XLA scatter atol 1e-5,
 vs the Pallas splat atol 1e-1 / rtol 1e-2 (the TPU kernel rounds its tap
 weights to bf16, tests/test_splat.py); image gradients atol 1e-5.
@@ -33,27 +37,27 @@ from mono_vifi_tpu_torch.ops.cuda import warp as WP
 RNG = np.random.default_rng(31)
 
 
-def rand(*shape, lo=0.0, hi=1.0):
-    return (lo + (hi - lo) * RNG.random(shape)).astype(np.float32)
+def rand(*shape, lo=0.0, hi=1.0, rng=RNG):
+    return (lo + (hi - lo) * rng.random(shape)).astype(np.float32)
 
 
 def t(x):
     return torch.from_numpy(np.array(x, copy=True))
 
 
-def smooth_grid(B, H, W, dx=30.0, dy=8.0, scale=1.0):
+def smooth_grid(B, H, W, dx=30.0, dy=8.0, scale=1.0, rng=RNG):
     """View-synthesis-like (B, H, W, 2) grid: slowly varying displacements."""
     ys, xs = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
     out = []
     for _ in range(B):
-        ph = RNG.uniform(0, 2 * np.pi, 4)
+        ph = rng.uniform(0, 2 * np.pi, 4)
         ddx = dx * (0.5 * np.sin(2 * np.pi * ys / H + ph[0]) + 0.5 * np.cos(2 * np.pi * xs / W + ph[1]))
         ddy = dy * (0.5 * np.sin(2 * np.pi * xs / W + ph[2]) + 0.5 * np.cos(2 * np.pi * ys / H + ph[3]))
         out.append(np.stack([(xs + ddx) / (W - 1) * 2 - 1, (ys + ddy) / (H - 1) * 2 - 1], -1))
     return (np.stack(out) * scale).astype(np.float32)
 
 
-# ------------------------------------------------------- 1: bilinear_taps
+# ----------------------------------------- 1: bilinear_sample (+ its bwd)
 
 @pytest.mark.parametrize("tap_dtype", [None, "bfloat16"])
 def test_taps_match_pallas_tap_kernel(tap_dtype):
@@ -67,9 +71,17 @@ def test_taps_match_pallas_tap_kernel(tap_dtype):
     ref = JW._windowed_taps4(jnp.asarray(img), y0, x0, (56, 384), jdt, True)
     ref = np.stack([np.asarray(r, np.float32) for r in ref], 2)  # (B, C, 4, H, W)
     tdt = None if tap_dtype is None else torch.bfloat16
-    got = WP.bilinear_taps(t(img).permute(0, 3, 1, 2),
-                           t(np.asarray(y0)), t(np.asarray(x0)), tdt)
+    got = WP.bilinear_taps_plain(t(img).permute(0, 3, 1, 2),
+                                 t(np.asarray(y0)), t(np.asarray(x0)), tdt)
     np.testing.assert_array_equal(got.float().numpy(), ref)
+
+
+# the port's sample: the autograd entry (sample_planar -> the Function) and
+# the kernel's plain version, held against the JAX package on the same inputs
+SAMPLERS = (
+    lambda img, gx, gy, mode, td: TS.sample_planar(img, gx, gy, mode, tap_dtype=td),
+    lambda img, gx, gy, mode, td: WP.bilinear_sample_plain(img, gx, gy, mode, tap_dtype=td),
+)
 
 
 @pytest.mark.parametrize("tap_dtype", [None, "bfloat16"])
@@ -79,33 +91,128 @@ def test_border_sample_matches_windowed_warp(tap_dtype):
     jdt = None if tap_dtype is None else jnp.bfloat16
     ref = JW.grid_sample_windowed(jnp.asarray(img), jnp.asarray(grid), interpret=True,
                                   tap_dtype=jdt, planar=True)
-    got = TS.sample_planar(t(img).permute(0, 3, 1, 2), t(grid[..., 0]), t(grid[..., 1]),
-                           "border", tap_dtype=None if jdt is None else torch.bfloat16)
-    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
+    for sampler in SAMPLERS:
+        got = sampler(t(img).permute(0, 3, 1, 2), t(grid[..., 0]), t(grid[..., 1]),
+                      "border", None if jdt is None else torch.bfloat16)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-5)
 
 
 def test_zeros_sample_matches_windowed_zeros():
     B, H, W, C = 2, 64, 384, 3
     img, grid = rand(B, H, W, C), smooth_grid(B, H, W, scale=1.1)
-    ref = JW.grid_sample_windowed_zeros(jnp.asarray(img), jnp.asarray(grid), interpret=True)
-    got = TS.sample_planar(t(img).permute(0, 3, 1, 2), t(grid[..., 0]), t(grid[..., 1]), "zeros")
-    np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(ref), atol=1e-5)
+    for jdt, tdt in ((None, None), (jnp.bfloat16, torch.bfloat16)):
+        ref = JW.grid_sample_windowed_zeros(jnp.asarray(img), jnp.asarray(grid),
+                                            interpret=True, tap_dtype=jdt)
+        for sampler in SAMPLERS:
+            got = sampler(t(img).permute(0, 3, 1, 2), t(grid[..., 0]), t(grid[..., 1]),
+                          "zeros", tdt)
+            np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(ref),
+                                       atol=1e-5)
+
+
+def _check_grid_gradient(B, H, W, displacement, scale, align, reference, tap_dtype, rng):
+    C = 3
+    img = rand(B, H, W, C, rng=rng)
+    grid = smooth_grid(B, H, W, *displacement, scale=scale, rng=rng)
+    ct = rand(B, C, H, W, lo=-1, hi=1, rng=rng)
+    if reference == "exact":
+        _, vjp = jax.vjp(lambda g: JS.grid_sample(jnp.asarray(img), g, align_corners=align),
+                         jnp.asarray(grid))
+        (ref,) = vjp(jnp.asarray(np.moveaxis(ct, 1, -1)))
+        ref_x, ref_y = np.asarray(ref)[..., 0], np.asarray(ref)[..., 1]
+    else:
+        def loss(gx, gy):
+            out = JW.grid_sample_windowed_planar(jnp.asarray(img), gx, gy, interpret=True,
+                                                 planar=True, tap_dtype=tap_dtype)
+            return jnp.sum(out * jnp.asarray(ct))
+
+        ref_x, ref_y = jax.grad(loss, argnums=(0, 1))(jnp.asarray(grid[..., 0]),
+                                                      jnp.asarray(grid[..., 1]))
+    gx = t(grid[..., 0]).requires_grad_(True)
+    gy = t(grid[..., 1]).requires_grad_(True)
+    out = TS.sample_planar(t(img).permute(0, 3, 1, 2), gx, gy, align_corners=align,
+                           tap_dtype=None if tap_dtype is None else torch.bfloat16)
+    out.backward(t(ct))
+    np.testing.assert_allclose(gx.grad.numpy(), np.asarray(ref_x), atol=1e-4)
+    np.testing.assert_allclose(gy.grad.numpy(), np.asarray(ref_y), atol=1e-4)
+    return grid, gx.grad.numpy(), gy.grad.numpy()
 
 
 def test_sample_grid_gradient_matches_exact_sampler():
     """The taps carry no gradient; the grid's gradient through the weights
-    equals jax.vjp of the exact sampler (the image's is not asked for)."""
-    B, H, W, C = 1, 24, 40, 3
-    img, grid = rand(B, H, W, C), smooth_grid(B, H, W, 5.0, 3.0)
-    ct = rand(B, C, H, W, lo=-1, hi=1)
-    _, vjp = jax.vjp(lambda g: JS.grid_sample(jnp.asarray(img), g), jnp.asarray(grid))
-    (ref,) = vjp(jnp.asarray(np.moveaxis(ct, 1, -1)))
-    gx = t(grid[..., 0]).requires_grad_(True)
-    gy = t(grid[..., 1]).requires_grad_(True)
-    out = TS.sample_planar(t(img).permute(0, 3, 1, 2), gx, gy)
-    out.backward(t(ct))
-    np.testing.assert_allclose(gx.grad.numpy(), np.asarray(ref)[..., 0], atol=1e-4)
-    np.testing.assert_allclose(gy.grad.numpy(), np.asarray(ref)[..., 1], atol=1e-4)
+    (the Function's backward, `bilinear_sample_bwd`'s plain version here)
+    equals jax.vjp of the exact sampler (the image's is not asked for), on a
+    smooth grid, a ragged shape, a grid a third of which lies past the
+    border (where the clamp passes no gradient), align_corners=False, and
+    jax.grad through the Pallas tap kernels themselves (interpret mode, f32
+    and bf16 taps)."""
+    _check_grid_gradient(1, 24, 40, (5.0, 3.0), 1.0, True, "exact", None, RNG)
+    # the added cases draw from their own generator, so that every later
+    # test of this file keeps its inputs
+    rng = np.random.default_rng(95)
+    _check_grid_gradient(2, 17, 33, (5.0, 3.0), 1.0, True, "exact", None, rng)
+    grid, dgx, dgy = _check_grid_gradient(2, 17, 33, (5.0, 3.0), 1.3, True, "exact",
+                                          None, rng)
+    outside = np.abs(grid) > 1.0
+    assert outside[..., 0].any() and not dgx[outside[..., 0]].any()
+    assert outside[..., 1].any() and not dgy[outside[..., 1]].any()
+    _check_grid_gradient(2, 17, 33, (5.0, 3.0), 1.05, False, "exact", None, rng)
+    for tap_dtype in (None, jnp.bfloat16):
+        _check_grid_gradient(1, 64, 384, (30.0, 8.0), 1.0, True, "pallas", tap_dtype, rng)
+
+
+def _unfused_sample(img, gx, gy, mode, tap_dtype):
+    """The arithmetic the fused sample replaced: factors, taps without a
+    gradient, the f32 combine, the cast to the img dtype."""
+    f = TS.factors(img.shape[2:], gx, gy, mode)
+    with torch.no_grad():
+        taps = WP.bilinear_taps_plain(img, f[0], f[1], tap_dtype)
+    return TS.combine_taps(taps, *f[2:]).to(img.dtype)
+
+
+@pytest.mark.parametrize("mode", ["border", "zeros"])
+@pytest.mark.parametrize("img_dtype,tap_dtype", [
+    (torch.float32, None), (torch.float32, torch.bfloat16), (torch.bfloat16, None),
+])
+def test_sample_function_equals_the_unfused_arithmetic(mode, img_dtype, tap_dtype):
+    """On CPU tensors the Function behind sample_planar equals taps + combine
+    bit for bit, and its grid gradient equals autograd of that arithmetic
+    bit for bit (border mode; zeros mode takes no grid gradient)."""
+    B, H, W, C = 2, 17, 33, 3
+    rng = np.random.default_rng(17)
+    img = t(rand(B, C, H, W, rng=rng)).to(img_dtype)
+    grid = smooth_grid(B, H, W, 5.0, 3.0, scale=1.1, rng=rng)
+    ct = t(rand(B, C, H, W, lo=-1, hi=1, rng=rng)).to(img_dtype)
+    ref = _unfused_sample(img, t(grid[..., 0]), t(grid[..., 1]), mode, tap_dtype)
+    for got in (TS.sample_planar(img, t(grid[..., 0]), t(grid[..., 1]), mode, tap_dtype=tap_dtype),
+                WP.bilinear_sample(img, t(grid[..., 0]), t(grid[..., 1]), mode,
+                                   tap_dtype=tap_dtype)):
+        assert got.dtype == img_dtype
+        assert torch.equal(got, ref)
+    if mode == "zeros":
+        return
+    grads = []
+    for fn in (TS.sample_planar, _unfused_sample):
+        gx = t(grid[..., 0]).requires_grad_(True)
+        gy = t(grid[..., 1]).requires_grad_(True)
+        fn(img, gx, gy, "border", tap_dtype=tap_dtype).backward(ct)
+        grads.append((gx.grad, gy.grad))
+    assert torch.equal(grads[0][0], grads[1][0]) and torch.equal(grads[0][1], grads[1][1])
+    dgx, dgy = WP.bilinear_sample_bwd(img, t(grid[..., 0]), t(grid[..., 1]), ct,
+                                      tap_dtype=tap_dtype)
+    assert torch.equal(dgx, grads[1][0]) and torch.equal(dgy, grads[1][1])
+
+
+def test_zeros_sample_refuses_a_grid_that_requires_a_gradient():
+    """Zeros mode is forward only: its callers pass frozen angles."""
+    img = torch.rand(1, 3, 8, 8)
+    gx = (torch.rand(1, 8, 8) * 2 - 1).requires_grad_(True)
+    gy = torch.rand(1, 8, 8) * 2 - 1
+    with pytest.raises(ValueError, match="frozen grid"):
+        TS.sample_planar(img, gx, gy, "zeros")
+    with torch.no_grad():
+        assert TS.sample_planar(img, gx, gy, "zeros").shape == (1, 3, 8, 8)
+    assert not TS.sample_planar(img, gx.detach(), gy, "zeros").requires_grad
 
 
 # ------------------------------------------------- 2, 3: ssim_l1_fwd / bwd
@@ -216,7 +323,11 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     cuda.reset_launch_counts()
     img = torch.rand(1, 3, 8, 8)
     ly = torch.zeros(1, 8, 8, dtype=torch.int32)
-    WP.bilinear_taps(img, ly, ly)
+    WP.bilinear_taps_plain(img, ly, ly)
+    g = torch.rand(1, 8, 8) * 2 - 1
+    WP.bilinear_sample(img, g, g)
+    WP.bilinear_sample(img, g, g, "zeros", tap_dtype=torch.bfloat16)
+    WP.bilinear_sample_bwd(img, g, g, torch.rand(1, 3, 8, 8))
     PM.ssim_l1_fwd(img, img)
     PM.ssim_l1_bwd(img, img, torch.rand(1, 8, 8))
     w = torch.rand(1, 8, 8)

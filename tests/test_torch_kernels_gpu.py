@@ -6,10 +6,15 @@ so it runs on a machine without JAX:
 
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
-Tolerances: taps exact; splat atol/rtol 1e-5 (atomics sum in another
-order); photometric map atol 1e-5, its gradient atol 1e-5 / rtol 1e-4; the
-table sample exact (the kernel rounds each product and sum of the combine
-on its own, in the plain version's order, then casts the same way).
+Tolerances: the fused sample and the table sample exact (the kernels
+round each product and sum of the weights and the combine on their own, in
+the plain version's order, then cast the same way); the sample's grid
+gradient atol 4 * C * 2^-23 * (largest size - 1) / 2 * max|ct| * max|img|
+(its channel sums run in another order than autograd's reductions, and the
+unnormalize scales them); splat atol/rtol 1e-5 (atomics sum in another
+order); photometric map atol 1e-5, its gradient atol 1e-5 / rtol 1e-4 at
+the small shape and 1e-4 of the largest |dx| at the ragged ones (the
+one-launch backward pools and folds in another order).
 """
 
 import pytest
@@ -21,6 +26,12 @@ from mono_vifi_tpu_torch.ops.cuda import fwarp as FW
 from mono_vifi_tpu_torch.ops.cuda import photometric as PM
 from mono_vifi_tpu_torch.ops.cuda import splat as SP
 from mono_vifi_tpu_torch.ops.cuda import warp as WP
+
+
+def _grad_tol(img, ct):
+    C, H, W = img.shape[1:]
+    return (4 * C * 2.0**-23 * (max(H, W) - 1) / 2
+            * ct.abs().max().item() * img.float().abs().max().item())
 
 
 @pytest.mark.gpu
@@ -35,11 +46,17 @@ def test_kernels_match_plain_on_the_card():
     cuda.reset_launch_counts()
     ly, lx, a0, a1, c0, c1 = (t.contiguous() for t in TS.factors((40, 72), gx, gy))
     FW.bilinear_sample_table(img, None, ly, lx, a0, a1, c0, c1)
+    ct = torch.randn((3, 3, 40, 72), generator=g, device=dev)
+    dgx, dgy = WP.bilinear_sample_bwd(img, gx, gy, ct)
+    rgx, rgy = WP.bilinear_sample_grid_bwd_plain(img, gx, gy, ct)
+    tol = _grad_tol(img, ct)
+    torch.testing.assert_close(dgx, rgx, atol=tol, rtol=0)
+    torch.testing.assert_close(dgy, rgy, atol=tol, rtol=0)
     for mode in ("border", "zeros"):
         ly, lx, a0, a1, c0, c1 = TS.factors((40, 72), gx, gy, mode)
         for td in (torch.float32, torch.bfloat16):
-            assert torch.equal(WP.bilinear_taps(img, ly, lx, td),
-                               WP.bilinear_taps_plain(img, ly, lx, td))
+            assert torch.equal(WP.bilinear_sample(img, gx, gy, mode, tap_dtype=td),
+                               WP.bilinear_sample_plain(img, gx, gy, mode, tap_dtype=td))
         ct = torch.randn((3, 3, 40, 72), generator=g, device=dev)
         ids = torch.tensor([1, 0, 1], dtype=torch.int32, device=dev)
         args = (ct, ly, lx, a0.contiguous(), a1.contiguous(), c0.contiguous(),
@@ -79,3 +96,80 @@ def test_table_sample_matches_plain_on_the_card(dtype, U, ids, C, H, W):
     ref = FW.bilinear_sample_table_plain(table, ids_t, ly, lx, a0, a1, c0, c1)
     assert got.dtype == dtype
     assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("img_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tap_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["border", "zeros"])
+@pytest.mark.parametrize("align_corners", [True, False])
+def test_sample_matches_plain_on_the_card(img_dtype, tap_dtype, mode, align_corners):
+    """The fused sample, bit for bit, on a ragged shape (5 channels: two
+    channel groups) with an output of its own size and a third of the
+    samples past the border."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    img = torch.randn((2, 5, 17, 131), generator=g, device=dev).to(img_dtype)
+    gx = torch.rand((2, 9, 70), generator=g, device=dev) * 2.6 - 1.3
+    gy = torch.rand((2, 9, 70), generator=g, device=dev) * 2.6 - 1.3
+    cuda.reset_launch_counts()
+    got = WP.bilinear_sample(img, gx, gy, mode, align_corners, tap_dtype)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["bilinear_sample"] == 1
+    ref = WP.bilinear_sample_plain(img, gx, gy, mode, align_corners, tap_dtype)
+    assert got.dtype == img_dtype
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("img_dtype,tap_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.bfloat16),
+])
+@pytest.mark.parametrize("align_corners", [True, False])
+def test_sample_grid_gradient_matches_plain_on_the_card(img_dtype, tap_dtype, align_corners):
+    """The Function's backward against autograd of the plain version, with
+    samples past the border (no gradient there)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    img = torch.rand((2, 3, 23, 45), generator=g, device=dev).to(img_dtype)
+    gx = (torch.rand((2, 23, 45), generator=g, device=dev) * 2.6 - 1.3).requires_grad_(True)
+    gy = (torch.rand((2, 23, 45), generator=g, device=dev) * 2.6 - 1.3).requires_grad_(True)
+    ct = torch.randn((2, 3, 23, 45), generator=g, device=dev).to(img_dtype)
+    cuda.reset_launch_counts()
+    TS.sample_planar(img, gx, gy, align_corners=align_corners, tap_dtype=tap_dtype).backward(ct)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["bilinear_sample"] == 1 and cuda.LAUNCHES["bilinear_sample_bwd"] == 1
+    rgx, rgy = WP.bilinear_sample_grid_bwd_plain(img, gx, gy, ct, align_corners, tap_dtype)
+    tol = _grad_tol(img, ct)
+    torch.testing.assert_close(gx.grad, rgx, atol=tol, rtol=0)
+    torch.testing.assert_close(gy.grad, rgy, atol=tol, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,C,H,W", [
+    (2, 3, 37, 70),   # ragged: neither side a multiple of the 16x32 tile
+    (2, 3, 3, 50),    # H = 3: the reflect fold reaches across the whole edge
+    (2, 3, 21, 3),    # W = 3
+    (1, 4, 19, 40),   # two channel groups
+    (2, 1, 2, 2),     # the smallest plane the reflect pad takes
+])
+def test_ssim_l1_bwd_matches_plain_on_the_card(N, C, H, W):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.rand((N, C, H, W), generator=g, device=dev)
+    y = (x + 0.1 * torch.randn((N, C, H, W), generator=g, device=dev)).clamp(0, 1)
+    ct = torch.rand((N, H, W), generator=g, device=dev)
+    for use_ssim in (True, False):
+        cuda.reset_launch_counts()
+        got = PM.ssim_l1_bwd(x, y, ct, use_ssim)
+        torch.cuda.synchronize()
+        assert cuda.LAUNCHES["ssim_l1_bwd"] == 1
+        ref = PM.ssim_l1_bwd_plain(x, y, ct, use_ssim)
+        torch.testing.assert_close(got, ref, atol=1e-4 * ref.abs().max().item(), rtol=0)
