@@ -11,8 +11,10 @@ Phases, in order; any failure exits non-zero before the last line:
      kernel's, the plain version's and, where one exists, a single PyTorch
      call's time (CUDA events), and the least time the card could take: the
      fused sample at the training step's five shapes (bit for bit), its grid
-     gradient, the photometric map and its one-launch gradient (also at
-     ragged shapes and H = 3 / W = 3), the splat and the table sample;
+     gradient, the photometric map (at both stacks' shapes, without SSIM)
+     and its one-launch gradient (both also at ragged shapes and H = 3 /
+     W = 3), the splat at the five fusion levels, with a scattered grid
+     and at the SADC restore, and the table sample;
   4. the full-width training step (ResNet18, 640x192, batch 10, frozen
      IFRNet-L, affine branch, shared_encoder, bf16 compute, random weights
      from a seed): 2 warm-up and 5 timed steps, finite loss and gradient
@@ -184,20 +186,29 @@ def kernel_phase(device):
          "launch_shape": tuple(img.shape)}
     del img, gx, gy, ct, grid, kx, ky, px, py
 
-    # kernels 2 and 3: the photometric map over the 6B-target stack
+    # kernels 2 and 3: the photometric map over the 6B-target stack, then
+    # the 3B-target stack, ragged shapes (odd width: no float2 loads), H = 3,
+    # W = 3 and the map without SSIM (an elementwise pass)
     N = 6 * B
     x = torch.rand((N, 3, H, W), generator=gen, device=device)
     y = (x + 0.1 * torch.randn((N, 3, H, W), generator=gen, device=device)).clamp(0, 1)
-    k = PM.ssim_l1_fwd(x, y)
-    p = PM.ssim_l1_fwd_plain(x, y)
-    err = (k - p).abs().max().item()
-    ms = time_ms(lambda: PM.ssim_l1_fwd(x, y))
-    pms = time_ms(lambda: PM.ssim_l1_fwd_plain(x, y), iters=5)
-    out["ssim_l1_fwd"] = entry(
-        "ssim_l1_fwd", "mono_vifi_tpu_torch/csrc/photometric.cu",
-        "mono_vifi_tpu/ops/pallas/photometric.py:90", err, 1e-5, ms, pms,
-        (2 * x.numel() + k.numel()) * 4, 80.0 * x.numel(), None,
-    ) | {"shape": f"x, y {tuple(x.shape)} f32", "launch_shape": tuple(x.shape)}
+    variants = []
+    for n, h, w, use_ssim in ((N, H, W, True), (3 * B, H, W, True), (8, 187, 629, True),
+                              (8, 3, W, True), (8, H, 3, True), (N, H, W, False)):
+        xs = x[:n, :, :h, :w].contiguous()
+        ys = y[:n, :, :h, :w].contiguous()
+        k = PM.ssim_l1_fwd(xs, ys, use_ssim)
+        p = PM.ssim_l1_fwd_plain(xs, ys, use_ssim)
+        err = (k - p).abs().max().item()
+        ms = time_ms(lambda: PM.ssim_l1_fwd(xs, ys, use_ssim))
+        pms = time_ms(lambda: PM.ssim_l1_fwd_plain(xs, ys, use_ssim), iters=5)
+        variants.append(entry(
+            "ssim_l1_fwd", "mono_vifi_tpu_torch/csrc/photometric.cu",
+            "mono_vifi_tpu/ops/pallas/photometric.py:90", err, 1e-5, ms, pms,
+            (2 * xs.numel() + k.numel()) * 4, (55.0 if use_ssim else 3.0) * xs.numel(), None,
+        ) | {"shape": f"x, y {tuple(xs.shape)} f32" + ("" if use_ssim else ", no SSIM")}
+            | ({"launch_shape": tuple(xs.shape)} if use_ssim and h == H and w == W else {}))
+    out["ssim_l1_fwd"] = variants[0] | {"variants": variants[1:]}
     # the one-launch backward at the path's shape, then ragged shapes (H, W
     # not multiples of the 16x32 tile; H = 3 and W = 3, where the reflect
     # fold reaches across the whole edge)
@@ -221,61 +232,89 @@ def kernel_phase(device):
     out["ssim_l1_bwd"] = variants[0] | {"variants": variants[1:]}
     del x, y, xs, ys
 
-    # kernel 4: the fusion warps' backward at level 0 (60 uses of 30 unique
-    # 64-channel maps at half resolution, bf16 cotangent), then the SADC
-    # rotate's backward (zeros mode, C=1)
+    # kernel 4: the fusion warps' backward at the five levels (60 uses of 30
+    # unique maps, bf16 cotangent; level 0 is 64 channels at half
+    # resolution), level 0 again with a scattered grid (pairs in several
+    # bins, each bin holding pairs from all over the cotangent), then the
+    # SADC rotate's backward (zeros mode, C=1: the direct path)
     from mono_vifi_tpu_torch.training.monovifi import TABLE_USES
 
-    h, w, C, U = H // 2, W // 2, 64, 3 * B
-    N = 6 * B
+    U, N = 3 * B, 6 * B
     ids = torch.tensor([q * B + j for q in TABLE_USES for j in range(B)],
                        dtype=torch.int32, device=device)
-    gx, gy = sampling.flow_to_grid(smooth_flow(gen, N, h, w, 10.0, 4.0, device))
-    ly, lx, a0, a1, c0, c1 = sampling.border_factors((h, w), gx, gy)
-    ctb = torch.randn((N, C, h, w), generator=gen, device=device).to(torch.bfloat16)
-    args = (ctb, ly, lx, a0, a1, c0, c1, (h, w), ids, U)
-    k = SP.bilinear_splat(*args)
-    p = SP.bilinear_splat_plain(*args)
-    err = (k - p).abs().max().item()
-    tol = 1e-5 * p.abs().max().item()
-    ms = time_ms(lambda: SP.bilinear_splat(*args))
-    pms = time_ms(lambda: SP.bilinear_splat_plain(*args), iters=5)
-    grid = torch.stack([gx, gy], -1)
-    dummy = torch.zeros((N, C, h, w), device=device)
-    ct32 = ctb.float()
-    lib = time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
-        ct32, dummy, grid, 0, 1, True, [True, False]))
-    nbytes = ctb.numel() * 2 + 6 * ly.numel() * 4 + ids.numel() * 4 + U * C * h * w * 4
-    main = entry(
-        "bilinear_splat", "mono_vifi_tpu_torch/csrc/splat.cu",
-        "mono_vifi_tpu/ops/pallas/splat.py:77", err, tol, ms, pms, nbytes,
-        8.0 * ctb.numel(), lib,
-    ) | {"shape": f"ct {tuple(ctb.shape)} bf16, {U} unique planes",
-         "launch_shape": tuple(ctb.shape)}
+    variants = []
 
-    N = 3 * B
-    angle = (torch.rand((N,), generator=gen, device=device) - 0.5) * 10.0
+    def splat_case(ct, gx, gy, f, hw, ids, planes, mode, label, replaces, path=None,
+                   out_dtype=torch.float32):
+        """Check the f32 sums (1e-5 of the largest |value|); with a bf16
+        out_dtype (the fusion levels' call: the Function's backward asks for
+        the image dtype) also the kernel's own rounding to bf16, within one
+        bf16 ulp of the largest value of the plain version's cast. The time
+        is that of the path's call, in out_dtype."""
+        h, w = hw
+        args = (ct, *f, hw, ids, planes)
+        k = SP.bilinear_splat(*args)
+        p = SP.bilinear_splat_plain(*args)
+        err = (k - p).abs().max().item()
+        extra = {}
+        if out_dtype != torch.float32:
+            kb = SP.bilinear_splat(*args, out_dtype=out_dtype)
+            ulp = 2.0 ** (math.floor(math.log2(p.abs().max().item())) - 7)
+            err_b = (kb.float() - p.to(out_dtype).float()).abs().max().item()
+            log(f"kernel bilinear_splat ({label}) bf16 out: max_abs_err {err_b:.3e} "
+                f"(tol {ulp:.1e}, one bf16 ulp of the largest value)")
+            if not err_b <= ulp:
+                raise AssertionError(f"bilinear_splat bf16 out: max error {err_b} above {ulp}")
+            extra = {"bf16_out_max_abs_err": err_b,
+                     "f32_out_ms": time_ms(lambda: SP.bilinear_splat(*args))}
+            del kb
+        ms = time_ms(lambda: SP.bilinear_splat(*args, out_dtype=out_dtype))
+        pms = time_ms(lambda: SP.bilinear_splat_plain(*args), iters=5)
+        # the same function by one library call: grid_sample's backward to the
+        # image, per use (no ids), f32
+        grid = torch.stack((gx, gy), -1)
+        ct32 = ct.float()
+        dummy = torch.zeros(ct.shape, device=device)
+        lib = time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+            ct32, dummy, grid, 0, 0 if mode == "zeros" else 1, True, [True, False]))
+        U_ = planes or ct.shape[0]
+        out_size = torch.empty((), dtype=out_dtype).element_size()
+        nbytes = (ct.numel() * ct.element_size() + 6 * f[0].numel() * 4
+                  + (ids.numel() * 4 if ids is not None else 0) + U_ * ct.shape[1] * h * w * out_size)
+        variants.append(entry(
+            "bilinear_splat", "mono_vifi_tpu_torch/csrc/splat.cu", replaces, err,
+            1e-5 * p.abs().max().item(), ms, pms, nbytes, 8.0 * ct.numel(), lib,
+        ) | {"shape": f"ct {tuple(ct.shape)} {str(ct.dtype)[6:]} -> {str(out_dtype)[6:]}, {label}"}
+            | extra | ({"launch_shape": tuple(ct.shape)} if path else {}))
+        del k, p
+
+    for level, (C, h, w) in enumerate(((64, H // 2, W // 2), (64, H // 4, W // 4),
+                                       (128, H // 8, W // 8), (256, H // 16, W // 16),
+                                       (512, H // 32, W // 32))):
+        gx, gy = sampling.flow_to_grid(smooth_flow(
+            gen, N, h, w, 10.0 * w / (W // 2), 4.0 * h / (H // 2), device))
+        f = sampling.border_factors((h, w), gx, gy)
+        ctb = torch.randn((N, C, h, w), generator=gen, device=device).to(torch.bfloat16)
+        splat_case(ctb, gx, gy, f, (h, w), ids, U, "border",
+                   f"{U} unique planes (fusion level {level})",
+                   "mono_vifi_tpu/ops/pallas/splat.py:77", path=True, out_dtype=torch.bfloat16)
+    C, h, w = 64, H // 2, W // 2
+    gx = torch.rand((N, h, w), generator=gen, device=device) * 2.2 - 1.1
+    gy = torch.rand((N, h, w), generator=gen, device=device) * 2.2 - 1.1
+    ctb = torch.randn((N, C, h, w), generator=gen, device=device).to(torch.bfloat16)
+    splat_case(ctb, gx, gy, sampling.border_factors((h, w), gx, gy), (h, w), ids, U, "border",
+               f"{U} unique planes, scattered grid",
+               "mono_vifi_tpu/ops/pallas/splat.py:77")
+    del ctb
+
+    angle = (torch.rand((3 * B,), generator=gen, device=device) - 0.5) * 10.0
     gx, gy = rotation_grid(-angle, H, W)
-    ly, lx, a0, a1, c0, c1 = sampling.zeros_factors((H, W), gx, gy)
-    a0, a1, c0, c1 = (t.contiguous() for t in (a0, a1, c0, c1))
-    ct1 = torch.rand((N, 1, H, W), generator=gen, device=device)
-    args = (ct1, ly, lx, a0, a1, c0, c1, (H, W))
-    k = SP.bilinear_splat(*args)
-    p = SP.bilinear_splat_plain(*args)
-    err = (k - p).abs().max().item()
-    ms = time_ms(lambda: SP.bilinear_splat(*args))
-    pms = time_ms(lambda: SP.bilinear_splat_plain(*args), iters=5)
-    grid = torch.stack([gx, gy], -1)
-    dummy = torch.zeros((N, 1, H, W), device=device)
-    lib = time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
-        ct1, dummy, grid, 0, 0, True, [True, False]))
-    sadc = entry(
-        "bilinear_splat", "mono_vifi_tpu_torch/csrc/splat.cu",
-        "mono_vifi_tpu/ops/pallas/splat.py:166", err, 1e-5 * p.abs().max().item(),
-        ms, pms, ct1.numel() * 4 + 6 * ly.numel() * 4 + ct1.numel() * 4,
-        8.0 * ct1.numel(), lib,
-    ) | {"shape": f"ct {tuple(ct1.shape)} f32, zeros mode", "launch_shape": tuple(ct1.shape)}
-    out["bilinear_splat"] = main | {"variants": [sadc]}
+    f = [t.contiguous() for t in sampling.zeros_factors((H, W), gx, gy)]
+    ct1 = torch.rand((3 * B, 1, H, W), generator=gen, device=device)
+    splat_case(ct1, gx, gy, f, (H, W), None, None, "zeros",
+               "zeros mode (SADC restore, direct path)",
+               "mono_vifi_tpu/ops/pallas/splat.py:166", path=True)
+    out["bilinear_splat"] = variants[0] | {"variants": variants[1:]}
 
     # kernel 5: the fusion table warp's forward at level 0 (64 channels at
     # half resolution), on the training step (60 uses of 30 planes, bf16) and

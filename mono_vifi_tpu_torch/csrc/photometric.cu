@@ -8,14 +8,29 @@
 // and applying the adjoint of the reflect-padded pool).
 //
 // What bounds them on an H100: bytes, in principle. The forward reads two
-// (N, C, H, W) f32 planes and writes one (N, H, W) plane, with ~60 flops per
-// pixel and channel against 24 bytes -- below the card's ~20 flop/byte f32
-// ridge. The TPU kernels held a whole image in VMEM.
+// (N, C, H, W) f32 planes and writes one (N, H, W) plane, with ~55
+// instructions per pixel and channel against 24 bytes; at the main path's
+// shapes the instruction count comes within ~0.7x of the byte time. The TPU
+// kernels held a whole image in VMEM.
 //
-// Forward: a block holds a 32x8 tile of the current channel plus a
-// one-pixel reflect halo in shared memory, so each input value is read from
-// device memory about (34*10)/(32*8) = 1.3 times and every pool, SSIM term
-// and the L1 term are formed in registers.
+// Forward, one launch: a warp takes a strip of 60 output columns by
+// kFwdRows rows of one image n, two columns a lane, and slides down it.
+// Each step loads one halo row of x and y for every channel (float2 loads
+// in the interior, reflect indexing only at the image's edges), forms the
+// 3-row column sums in the reference's order, gets the next lane's by
+// shuffle, and adds the channel's SSIM and L1 terms into the pixel's two
+// sums; the mean over C is taken before the row's single (float2) store.
+// The last three halo rows of every channel live in registers as a ring:
+// no shared memory, no barrier, each input value read from device memory
+// once (the two columns neighbouring strips share come through L1/L2).
+// The channels of a pixel are held in registers in chunks of up to four;
+// a C with no divisor in 2..4 takes chunks of one, carrying the partial sum
+// through the output. Without SSIM it is one elementwise pass. In one pass
+// (C <= 4, the training step's C = 3) the map is bit-exact against the
+// plain version: every product and sum is rounded on its own, in its order,
+// with an IEEE division. That costs ~8% over fused multiply-adds and a fast
+// division, and buys a training step whose minima over these maps pick the
+// same pixels with the kernel as without it.
 //
 // Backward, one launch: it reads x, y and the (N, H, W) cotangent and writes
 // dx, 16 bytes per pixel and channel; its bound is those bytes. What held
@@ -38,8 +53,6 @@
 
 namespace {
 
-constexpr int TX = 32;
-constexpr int TY = 8;
 constexpr float kC1 = 0.01f * 0.01f;
 constexpr float kC2 = 0.03f * 0.03f;
 
@@ -48,87 +61,7 @@ __device__ __forceinline__ int reflect(int i, int n) {
   return mv::clampi(i, 0, n - 1);
 }
 
-// load the (TY+2) x (TX+2) reflect-padded tile of one plane whose interior
-// starts at (y0, x0)
-__device__ __forceinline__ void load_tile(const float* __restrict__ plane,
-                                          float (*s)[TX + 2], int H, int W,
-                                          int y0, int x0) {
-  const int t = threadIdx.y * TX + threadIdx.x;
-  for (int i = t; i < (TY + 2) * (TX + 2); i += TX * TY) {
-    const int ty = i / (TX + 2);
-    const int tx = i - ty * (TX + 2);
-    const int gy = reflect(y0 + ty - 1, H);
-    const int gx = reflect(x0 + tx - 1, W);
-    s[ty][tx] = __ldg(plane + (int64_t)gy * W + gx);
-  }
-}
-
-struct Stats {
-  float mu_x, mu_y, sig_x, sig_y, sig_xy;
-};
-
-// 3x3 mean pools around tile cell (ty+1, tx+1), summed rows first, then
-// columns, as the reference pool does
-__device__ __forceinline__ Stats pooled(const float (*sx)[TX + 2],
-                                        const float (*sy)[TX + 2], int ty,
-                                        int tx) {
-  float cx[3], cy[3], cxx[3], cyy[3], cxy[3];
-#pragma unroll
-  for (int d = 0; d < 3; ++d) {
-    const float x0 = sx[ty][tx + d], x1 = sx[ty + 1][tx + d],
-                x2 = sx[ty + 2][tx + d];
-    const float y0 = sy[ty][tx + d], y1 = sy[ty + 1][tx + d],
-                y2 = sy[ty + 2][tx + d];
-    cx[d] = x0 + x1 + x2;
-    cy[d] = y0 + y1 + y2;
-    cxx[d] = x0 * x0 + x1 * x1 + x2 * x2;
-    cyy[d] = y0 * y0 + y1 * y1 + y2 * y2;
-    cxy[d] = x0 * y0 + x1 * y1 + x2 * y2;
-  }
-  Stats s;
-  s.mu_x = (cx[0] + cx[1] + cx[2]) / 9.0f;
-  s.mu_y = (cy[0] + cy[1] + cy[2]) / 9.0f;
-  s.sig_x = (cxx[0] + cxx[1] + cxx[2]) / 9.0f - s.mu_x * s.mu_x;
-  s.sig_y = (cyy[0] + cyy[1] + cyy[2]) / 9.0f - s.mu_y * s.mu_y;
-  s.sig_xy = (cxy[0] + cxy[1] + cxy[2]) / 9.0f - s.mu_x * s.mu_y;
-  return s;
-}
-
-__global__ void __launch_bounds__(TX* TY)
-    fwd_kernel(const float* __restrict__ x, const float* __restrict__ y,
-               float* __restrict__ out, int C, int H, int W, int use_ssim) {
-  __shared__ float sx[TY + 2][TX + 2];
-  __shared__ float sy[TY + 2][TX + 2];
-  const int n = blockIdx.z;
-  const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
-  const int ty = threadIdx.y, tx = threadIdx.x;
-  const int64_t plane = (int64_t)H * W;
-  float acc = 0.0f;
-  for (int c = 0; c < C; ++c) {
-    __syncthreads();
-    load_tile(x + ((int64_t)n * C + c) * plane, sx, H, W, y0, x0);
-    load_tile(y + ((int64_t)n * C + c) * plane, sy, H, W, y0, x0);
-    __syncthreads();
-    const float l1 = fabsf(sy[ty + 1][tx + 1] - sx[ty + 1][tx + 1]);
-    float v = l1;
-    if (use_ssim) {
-      const Stats s = pooled(sx, sy, ty, tx);
-      const float num = (2.0f * s.mu_x * s.mu_y + kC1) * (2.0f * s.sig_xy + kC2);
-      const float den = (s.mu_x * s.mu_x + s.mu_y * s.mu_y + kC1) *
-                        (s.sig_x + s.sig_y + kC2);
-      const float ss = fminf(fmaxf((1.0f - num / den) / 2.0f, 0.0f), 1.0f);
-      v = 0.85f * ss + 0.15f * l1;
-    }
-    acc += v;
-  }
-  const int gy = y0 + ty, gx = x0 + tx;
-  if (gy < H && gx < W) out[(int64_t)n * plane + (int64_t)gy * W + gx] = acc / C;
-}
-
-// ---------------------------------------------------------------- backward
-
 constexpr int kStripCols = 60;  // output columns of a strip, two a lane
-constexpr int kStripRows = 16;  // output rows of a strip
 constexpr unsigned kFullWarp = 0xffffffffu;
 constexpr float kNinth = 1.0f / 9.0f;
 
@@ -158,6 +91,176 @@ __device__ __forceinline__ Sums from_next_lane(const Sums& s) {
           __shfl_down_sync(kFullWarp, s.yy, 1),
           __shfl_down_sync(kFullWarp, s.xy, 1)};
 }
+
+// ----------------------------------------------------------------- forward
+
+// output rows of a forward strip, and strips (warps) stacked in a block
+constexpr int kFwdRows = 24;
+constexpr int kFwdWarps = 2;
+
+// The forward's arithmetic, each product, sum and quotient rounded on its
+// own in the plain version's order (ops/losses.py: pools of rows then
+// columns times 1/9, each moment term, the means over C as torch's sum
+// times 1/C), so that its map is bit-exact (see the head of the file).
+__device__ __forceinline__ float add3_rn(float a, float b, float c) {
+  return __fadd_rn(__fadd_rn(a, b), c);
+}
+
+__device__ __forceinline__ Sums column_sums_rn(float a0, float a1, float a2,
+                                               float b0, float b1, float b2) {
+  return {add3_rn(a0, a1, a2), add3_rn(b0, b1, b2),
+          add3_rn(__fmul_rn(a0, a0), __fmul_rn(a1, a1), __fmul_rn(a2, a2)),
+          add3_rn(__fmul_rn(b0, b0), __fmul_rn(b1, b1), __fmul_rn(b2, b2)),
+          add3_rn(__fmul_rn(a0, b0), __fmul_rn(a1, b1), __fmul_rn(a2, b2))};
+}
+
+__device__ __forceinline__ Sums across_rn(const Sums& p, const Sums& q,
+                                          const Sums& r) {
+  return {add3_rn(p.x, q.x, r.x), add3_rn(p.y, q.y, r.y),
+          add3_rn(p.xx, q.xx, r.xx), add3_rn(p.yy, q.yy, r.yy),
+          add3_rn(p.xy, q.xy, r.xy)};
+}
+
+// clamped (1 - SSIM) / 2 of one pixel from its 3x3 sums
+__device__ __forceinline__ float ssim_term(const Sums& s) {
+  const float mu_x = __fmul_rn(s.x, kNinth), mu_y = __fmul_rn(s.y, kNinth);
+  const float sig_x = __fsub_rn(__fmul_rn(s.xx, kNinth), __fmul_rn(mu_x, mu_x));
+  const float sig_y = __fsub_rn(__fmul_rn(s.yy, kNinth), __fmul_rn(mu_y, mu_y));
+  const float sig_xy = __fsub_rn(__fmul_rn(s.xy, kNinth), __fmul_rn(mu_x, mu_y));
+  const float num = __fmul_rn(__fadd_rn(__fmul_rn(__fmul_rn(2.0f, mu_x), mu_y), kC1),
+                              __fadd_rn(__fmul_rn(2.0f, sig_xy), kC2));
+  const float den = __fmul_rn(
+      __fadd_rn(__fadd_rn(__fmul_rn(mu_x, mu_x), __fmul_rn(mu_y, mu_y)), kC1),
+      __fadd_rn(__fadd_rn(sig_x, sig_y), kC2));
+  return fminf(fmaxf(__fmul_rn(__fsub_rn(1.0f, __fdiv_rn(num, den)), 0.5f), 0.0f), 1.0f);
+}
+
+// 0.85 * mean_c SSIM term + 0.15 * mean_c L1 term, from the two sums
+__device__ __forceinline__ float combine_means(float s, float l, float inv_c) {
+  return __fadd_rn(__fmul_rn(0.85f, __fmul_rn(s, inv_c)),
+                   __fmul_rn(0.15f, __fmul_rn(l, inv_c)));
+}
+
+// the values of image columns q, q+1 of one row (q even), reflected into
+// [0, W) at the image's edges
+__device__ __forceinline__ float2 load_pair(const float* __restrict__ row,
+                                            int q, int W, bool vec) {
+  if (vec && q >= 0 && q + 1 < W)
+    return __ldg(reinterpret_cast<const float2*>(row + q));
+  return make_float2(__ldg(row + reflect(q, W)), __ldg(row + reflect(q + 1, W)));
+}
+
+// A warp takes a kFwdRows x 60 output strip of image n and slides down its
+// rows. Lane l holds image columns q = x0-2+2l and q+1 of every channel and
+// computes output columns q+1 (valid on lanes 1..30) and q+2 (lanes
+// 0..29), the next lane's columns coming by shuffle. Channels run in chunks
+// of KC (C a multiple of KC), each chunk a pass down the strip whose sums
+// stay in registers; a later chunk adds to what the earlier ones stored.
+template <int KC>
+__global__ void __launch_bounds__(32 * kFwdWarps)
+    ssim_fwd_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                    float* __restrict__ out, int C, int H, int W) {
+  const int lane = threadIdx.x & 31;
+  const int y0 = (blockIdx.y * kFwdWarps + (threadIdx.x >> 5)) * kFwdRows;
+  if (y0 >= H) return;  // a whole warp: there is no block barrier
+  const int x0 = blockIdx.x * kStripCols;
+  const int64_t plane = (int64_t)H * W;
+  const int n = blockIdx.z;
+  float* outp = out + (int64_t)n * plane;
+  const int q = x0 - 2 + 2 * lane;
+  // float2 loads and stores stay aligned
+  const bool vec = (W & 1) == 0 &&
+                   ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y) |
+                     reinterpret_cast<uintptr_t>(out)) & 7) == 0;
+  // lane l stores columns x0+2l, x0+2l+1 (its q+2 and the next lane's q+1)
+  const int sx = x0 + 2 * lane;
+  const bool st0 = lane < kStripCols / 2 && sx < W;
+  const bool st1 = lane < kStripCols / 2 && sx + 1 < W;
+  const float inv_c = 1.0f / C;
+  const int rows = min(kFwdRows, H - y0) + 2;  // halo rows the strip needs
+
+  for (int cb = 0; cb < C; cb += KC) {
+    const float* xp = x + ((int64_t)n * C + cb) * plane;
+    const float* yp = y + ((int64_t)n * C + cb) * plane;
+    float2 rx[3][KC], ry[3][KC];  // halo rows r of each channel, by r % 3
+    for (int r0 = 0; r0 < rows; r0 += 3) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const int r = r0 + k;
+        if (r >= rows) break;
+        const int km2 = (k + 1) % 3, km1 = (k + 2) % 3;  // rows r-2, r-1
+
+        // halo row r: image row y0 + r - 1, reflected
+        const int64_t ro = (int64_t)reflect(y0 + r - 1, H) * W;
+#pragma unroll
+        for (int c = 0; c < KC; ++c) {
+          rx[k][c] = load_pair(xp + c * plane + ro, q, W, vec);
+          ry[k][c] = load_pair(yp + c * plane + ro, q, W, vec);
+        }
+        if (r < 2) continue;
+
+        // output row y0 + r - 2 from halo rows r-2..r: columns q+1, q+2,
+        // the sums of their SSIM terms (s) and L1 terms (l) over the chunk
+        float s0 = 0.0f, s1 = 0.0f, l0 = 0.0f, l1 = 0.0f;
+#pragma unroll
+        for (int c = 0; c < KC; ++c) {
+          const Sums c0 = column_sums_rn(rx[km2][c].x, rx[km1][c].x, rx[k][c].x,
+                                         ry[km2][c].x, ry[km1][c].x, ry[k][c].x);
+          const Sums c1 = column_sums_rn(rx[km2][c].y, rx[km1][c].y, rx[k][c].y,
+                                         ry[km2][c].y, ry[km1][c].y, ry[k][c].y);
+          const Sums c2 = from_next_lane(c0), c3 = from_next_lane(c1);
+          const float x2 = __shfl_down_sync(kFullWarp, rx[km1][c].x, 1);
+          const float y2 = __shfl_down_sync(kFullWarp, ry[km1][c].x, 1);
+          s0 = __fadd_rn(s0, ssim_term(across_rn(c0, c1, c2)));
+          l0 = __fadd_rn(l0, fabsf(__fsub_rn(ry[km1][c].y, rx[km1][c].y)));
+          s1 = __fadd_rn(s1, ssim_term(across_rn(c1, c2, c3)));
+          l1 = __fadd_rn(l1, fabsf(__fsub_rn(y2, x2)));
+        }
+        // one pass (C = KC, the training step's C = 3): the plain version's
+        // means; several: each chunk's weighted sum added to what the
+        // earlier ones stored, and the mean taken at the last (not
+        // bit-exact)
+        const bool one = KC == C;
+        const float v0 = one ? combine_means(s0, l0, inv_c) : 0.85f * s0 + 0.15f * l0;
+        const float v1 = one ? combine_means(s1, l1, inv_c) : 0.85f * s1 + 0.15f * l1;
+        // lane l stores its q+2 and the next lane's q+1
+        const float w1 = __shfl_down_sync(kFullWarp, v0, 1);
+        float* o = outp + (int64_t)(y0 + r - 2) * W + sx;
+        float2 v = make_float2(v1, w1);
+        if (cb > 0) {
+          if (st0) v.x += o[0];
+          if (st1) v.y += o[1];
+        }
+        if (!one && cb + KC == C) v = make_float2(v.x * inv_c, v.y * inv_c);
+        if (st1 && vec) {
+          *reinterpret_cast<float2*>(o) = v;
+        } else {
+          if (st0) o[0] = v.x;
+          if (st1) o[1] = v.y;
+        }
+      }
+    }
+  }
+}
+
+// without SSIM: out = mean_c |y - x|, one elementwise pass
+__global__ void l1_fwd_kernel(const float* __restrict__ x,
+                              const float* __restrict__ y,
+                              float* __restrict__ out, int C, int64_t plane,
+                              int64_t total) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int64_t n = i / plane, p = i - n * plane;
+  const float* xp = x + n * C * plane + p;
+  const float* yp = y + n * C * plane + p;
+  float s = 0.0f;
+  for (int c = 0; c < C; ++c) s += fabsf(__ldg(yp + c * plane) - __ldg(xp + c * plane));
+  out[i] = s * (1.0f / C);  // torch's mean: the sum times 1/C
+}
+
+// ---------------------------------------------------------------- backward
+
+constexpr int kStripRows = 16;  // output rows of a backward strip
 
 // the three fields of one pixel from its 3x3 sums and its ct / C: the
 // adjoint of the clamped (1 - SSIM) / 2 with respect to the pooled
@@ -324,9 +427,27 @@ __global__ void l1_bwd_kernel(const float* __restrict__ x,
 // x, y (N, C, H, W) f32; out (N, H, W) f32
 extern "C" int mv_ssim_l1_fwd(const float* x, const float* y, float* out, int N,
                               int C, int H, int W, int use_ssim, void* stream) {
-  dim3 grid((W + TX - 1) / TX, (H + TY - 1) / TY, N);
-  fwd_kernel<<<grid, dim3(TX, TY), 0, static_cast<cudaStream_t>(stream)>>>(
-      x, y, out, C, H, W, use_ssim);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (use_ssim) {
+    dim3 grid((W + kStripCols - 1) / kStripCols,
+              (H + kFwdRows * kFwdWarps - 1) / (kFwdRows * kFwdWarps), N);
+    const int threads = 32 * kFwdWarps;
+    if (C % 4 == 0) {
+      ssim_fwd_kernel<4><<<grid, threads, 0, s>>>(x, y, out, C, H, W);
+    } else if (C % 3 == 0) {
+      ssim_fwd_kernel<3><<<grid, threads, 0, s>>>(x, y, out, C, H, W);
+    } else if (C % 2 == 0) {
+      ssim_fwd_kernel<2><<<grid, threads, 0, s>>>(x, y, out, C, H, W);
+    } else {
+      ssim_fwd_kernel<1><<<grid, threads, 0, s>>>(x, y, out, C, H, W);
+    }
+  } else {
+    const int64_t plane = (int64_t)H * W;
+    const int64_t total = (int64_t)N * plane;
+    const int threads = 256;
+    l1_fwd_kernel<<<(unsigned)((total + threads - 1) / threads), threads, 0,
+                    s>>>(x, y, out, C, plane, total);
+  }
   return (int)cudaGetLastError();
 }
 

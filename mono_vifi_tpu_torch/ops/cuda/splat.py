@@ -39,14 +39,41 @@ def bilinear_splat_plain(ct, ly, lx, a0, a1, c0, c1, out_hw, ids=None,
     return out.reshape(num_planes, C, H, W)
 
 
+# the binned path's output tile, as csrc/splat.cu fixes it (256 cells)
+TILE_H, TILE_W = 8, 32
+# blocks a splat launch aims for (about four per SM of an H100)
+MIN_BLOCKS = 1024
+
+
+def splat_tiles(H, W):
+    """Output tiles of TILE_H x TILE_W cells that cover an (H, W) plane."""
+    return -(-H // TILE_H) * -(-W // TILE_W)
+
+
+def splat_channel_group(C, H, W, U):
+    """Channels a block of a splat launch of U planes (C, H, W) sums: all of
+    them, halved (down to 8) while the launch has fewer than MIN_BLOCKS
+    blocks, so that the deep levels' few tiles still fill the card. One
+    channel takes the direct path: 0."""
+    if C == 1:
+        return 0
+    tiles = splat_tiles(H, W)
+    cg = C
+    while cg > 8 and tiles * U * -(-C // cg) < MIN_BLOCKS:
+        cg = -(-cg // 2)
+    return cg
+
+
 def bilinear_splat(ct, ly, lx, a0, a1, c0, c1, out_hw, ids=None,
                    num_planes=None, out_dtype=None):
     """Scatter-add ct (N, C, Ho, Wo) with separable weights at bases (ly, lx)
     into (U, C, H, W) planes; use k goes to plane ids[k] (int32, (N,)) when
-    ids is given. Sums run in f32; the result is cast to `out_dtype`."""
+    ids is given. Sums run in f32; the result is in `out_dtype` (f32 or
+    bf16; f32 by default)."""
+    out_dtype = out_dtype or torch.float32
     if not cuda.use_kernel(ct):
         out = bilinear_splat_plain(ct, ly, lx, a0, a1, c0, c1, out_hw, ids, num_planes)
-        return out.to(out_dtype or torch.float32)
+        return out.to(out_dtype)
     dev = ct.device
     cuda.check(ct, "ct", (torch.float32, torch.bfloat16), 4, dev)
     for name, t in (("ly", ly), ("lx", lx)):
@@ -65,17 +92,28 @@ def bilinear_splat(ct, ly, lx, a0, a1, c0, c1, out_hw, ids=None,
         U = num_planes
     else:
         U = N
-    if H < 2 or W < 2 or N > 65535:
+    if out_dtype not in cuda.DTYPE_CODE:
+        raise TypeError(f"out_dtype {out_dtype} not supported")
+    cg = splat_channel_group(C, H, W, U)
+    list_len = 8 * N * -(-(Ho * Wo) // 2)
+    if (H < 2 or W < 2 or N < 1 or U > 65535 or (cg and -(-C // cg) > 65535)
+            or list_len >= 2**31 or ct.numel() >= 2**31):
         raise ValueError(f"splat shape {tuple(ct.shape)} -> {out_hw} not supported")
-    canvas = torch.zeros((U, C, H, W), dtype=torch.float32, device=dev)
+    if cg:  # binned: every cell written in the output dtype
+        out = torch.empty((U, C, H, W), dtype=out_dtype, device=dev)
+        scratch = torch.empty((3 * U * splat_tiles(H, W) + list_len,), dtype=torch.int32, device=dev)
+    else:  # direct: atomics into a zeroed f32 canvas
+        out = torch.zeros((U, C, H, W), dtype=torch.float32, device=dev)
+        scratch = None
     cuda.launch(
         "mv_bilinear_splat", "bilinear_splat",
         ct.data_ptr(), cuda.DTYPE_CODE[ct.dtype], ly.data_ptr(), lx.data_ptr(),
         a0.data_ptr(), a1.data_ptr(), c0.data_ptr(), c1.data_ptr(),
-        ids.data_ptr() if ids is not None else None, canvas.data_ptr(),
-        N, C, Ho, Wo, U, H, W, shape=ct.shape,
+        ids.data_ptr() if ids is not None else None, out.data_ptr(),
+        cuda.DTYPE_CODE[out.dtype], scratch.data_ptr() if cg else None,
+        N, C, Ho, Wo, U, H, W, cg, shape=ct.shape,
     )
-    return canvas.to(out_dtype or torch.float32)
+    return out.to(out_dtype)
 
 
 class _FrozenGridSample(torch.autograd.Function):

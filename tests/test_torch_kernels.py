@@ -18,6 +18,8 @@ The same kernels on the card, against their plain versions, are in
 tests/test_torch_kernels_gpu.py.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -291,6 +293,57 @@ def test_splat_with_ids_sums_each_unique_planes_uses():
         ref = np.stack([per_use[[k for k, u in enumerate(ids) if u == p]].sum(0)
                         for p in range(3)])
         np.testing.assert_allclose(got, ref, atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("C,H,W,U", [
+    (64, 96, 320, 30), (64, 48, 160, 30), (128, 24, 80, 30), (256, 12, 40, 30),
+    (512, 6, 20, 30),     # the fusion levels, 60 uses onto 30 planes
+    (1, 192, 640, 30),    # the SADC restore
+    (5, 17, 131, 3),      # ragged
+    (3, 2, 2, 2),         # the smallest plane
+])
+def test_splat_channel_group_fits_the_launch(C, H, W, U):
+    """The splat's channel group: no larger than C, halved only while the
+    launch of 8 x 32-cell tiles has fewer than MIN_BLOCKS blocks, and never
+    below 8 channels. One channel takes the direct path (0)."""
+    cg = SP.splat_channel_group(C, H, W, U)
+    if C == 1:
+        assert cg == 0
+        return
+    blocks = SP.splat_tiles(H, W) * U * -(-C // cg)
+    assert 1 <= cg <= C and (cg >= 8 or cg == C)
+    assert cg == C or blocks >= SP.MIN_BLOCKS // 2
+    assert blocks >= SP.MIN_BLOCKS or cg <= 8 or cg == C
+
+
+def test_splat_tile_is_the_kernels():
+    """The wrapper sizes the bins' scratch by TILE_H x TILE_W: the tile that
+    csrc/splat.cu fixes (log2 sizes kLth, kLtw; a cell a thread of 256)."""
+    import re
+
+    src = (Path(SP.__file__).parents[2] / "csrc" / "splat.cu").read_text()
+    lth, ltw = map(int, re.search(r"constexpr int kLth = (\d+), kLtw = (\d+);", src).groups())
+    assert (SP.TILE_H, SP.TILE_W) == (1 << lth, 1 << ltw)
+    assert SP.TILE_H * SP.TILE_W == 256
+    assert SP.splat_tiles(96, 320) == 12 * 10 and SP.splat_tiles(6, 20) == 1
+    assert SP.splat_tiles(17, 131) == 3 * 5
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.bfloat16])
+def test_cpu_splat_returns_the_plain_sums_in_the_requested_dtype(out_dtype):
+    """On CPU tensors the wrapper returns the plain version's f32 sums, cast
+    to out_dtype (f32 by default), as the kernel writes them on the card."""
+    B, H, W, C = 6, 16, 40, 3
+    ids = torch.tensor([1, 1, 0, 2, 0, 2], dtype=torch.int32)
+    rng = np.random.default_rng(5)
+    grid = smooth_grid(B, H, W, 20.0, 3.0, rng=rng)
+    ly, lx, a0, a1, c0, c1 = (t(v) for v in JSP._border_factors((H, W), jnp.asarray(grid)))
+    ct = t(rng.standard_normal((B, C, H, W)).astype(np.float32))
+    args = (ct, ly.int(), lx.int(), a0, a1, c0, c1, (H, W), ids, 3)
+    got = SP.bilinear_splat(*args, out_dtype=out_dtype)
+    ref = SP.bilinear_splat_plain(*args)
+    assert got.dtype == (out_dtype or torch.float32) and got.shape == (3, C, H, W)
+    assert torch.equal(got, ref.to(got.dtype))
 
 
 @pytest.mark.parametrize("mode", ["border", "zeros"])

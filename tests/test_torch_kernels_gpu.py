@@ -11,9 +11,13 @@ round each product and sum of the weights and the combine on their own, in
 the plain version's order, then cast the same way); the sample's grid
 gradient atol 4 * C * 2^-23 * (largest size - 1) / 2 * max|ct| * max|img|
 (its channel sums run in another order than autograd's reductions, and the
-unnormalize scales them); splat atol/rtol 1e-5 (atomics sum in another
-order); photometric map atol 1e-5, its gradient atol 1e-5 / rtol 1e-4 at
-the small shape and 1e-4 of the largest |dx| at the ragged ones (the
+unnormalize scales them); splat atol/rtol 1e-5, and 1e-5 of the largest
+|value| at the fusion levels' shapes (atomics sum in another order, which
+varies from run to run); photometric map exact where its channels take
+one pass (C <= 4: it rounds each product and sum in the plain version's
+order) and atol 1e-5 otherwise (chunks carry a weighted partial sum through
+the output), its gradient atol 1e-5 / rtol 1e-4
+at the small shape and 1e-4 of the largest |dx| at the ragged ones (the
 one-launch backward pools and folds in another order).
 """
 
@@ -173,3 +177,136 @@ def test_ssim_l1_bwd_matches_plain_on_the_card(N, C, H, W):
         assert cuda.LAUNCHES["ssim_l1_bwd"] == 1
         ref = PM.ssim_l1_bwd_plain(x, y, ct, use_ssim)
         torch.testing.assert_close(got, ref, atol=1e-4 * ref.abs().max().item(), rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_ssim", [True, False])
+@pytest.mark.parametrize("N,C,H,W", [
+    (30, 3, 192, 640),  # the training step's 3B-target stack
+    (8, 3, 187, 629),   # ragged: odd width (no float2 loads), partial strips
+    (8, 3, 3, 640),     # H = 3
+    (8, 3, 192, 3),     # W = 3
+    (2, 4, 19, 40),     # one chunk of four channels
+    (2, 5, 21, 62),     # five channels: chunks of one through the output
+    (2, 1, 2, 2),       # the smallest plane the reflect pad takes
+])
+def test_ssim_l1_fwd_matches_plain_on_the_card(N, C, H, W, use_ssim):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.rand((N, C, H, W), generator=g, device=dev)
+    y = (x + 0.1 * torch.randn((N, C, H, W), generator=g, device=dev)).clamp(0, 1)
+    cuda.reset_launch_counts()
+    got = PM.ssim_l1_fwd(x, y, use_ssim)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["ssim_l1_fwd"] == 1
+    tol = 0.0 if C <= 4 else 1e-5
+    torch.testing.assert_close(got, PM.ssim_l1_fwd_plain(x, y, use_ssim), atol=tol, rtol=0)
+
+
+# the fusion levels of ResNet18 at 640x192: (channels, height, width)
+FUSION_LEVELS = [(64, 96, 320), (64, 48, 160), (128, 24, 80), (256, 12, 40), (512, 6, 20)]
+
+
+def _fusion_ids(dev, b=10):
+    uses = (1, 1, 0, 2, 0, 2)
+    return torch.tensor([q * b + j for q in uses for j in range(b)],
+                        dtype=torch.int32, device=dev), 3 * b
+
+
+def _check_splat(ct, f, hw, ids=None, planes=None):
+    ly, lx, a0, a1, c0, c1 = (t.contiguous() for t in f)
+    args = (ct, ly, lx, a0, a1, c0, c1, hw, ids, planes)
+    cuda.reset_launch_counts()
+    got = SP.bilinear_splat(*args)
+    torch.cuda.synchronize()
+    assert cuda.LAUNCHES["bilinear_splat"] == 1
+    ref = SP.bilinear_splat_plain(*args)
+    torch.testing.assert_close(got, ref, atol=1e-5 * ref.abs().max().item(), rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("with_ids", [True, False])
+@pytest.mark.parametrize("C,H,W", FUSION_LEVELS)
+def test_splat_fusion_levels_match_plain_on_the_card(C, H, W, with_ids, dtype):
+    """60 uses of a smooth flow, onto 30 planes through ids or onto 60
+    without: the shared-window path."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import math
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    ids, planes = _fusion_ids(dev) if with_ids else (None, None)
+    N = 60
+    ys = torch.linspace(0, 2 * math.pi, H, device=dev).view(1, H, 1)
+    xs = torch.linspace(0, 2 * math.pi, W, device=dev).view(1, 1, W)
+    ph = torch.rand((2, N, 1, 1), generator=g, device=dev) * 2 * math.pi
+    flow = torch.stack([10.0 * W / 320 * torch.sin(ys + ph[0]).expand(N, H, W),
+                        4.0 * H / 96 * torch.cos(xs + ph[1]).expand(N, H, W)], 1)
+    gx, gy = TS.flow_to_grid(flow)
+    ct = torch.randn((N, C, H, W), generator=g, device=dev).to(dtype)
+    _check_splat(ct, TS.border_factors((H, W), gx, gy), (H, W), ids, planes)
+
+
+@pytest.mark.gpu
+def test_splat_sadc_restore_matches_plain_on_the_card():
+    """C = 1, f32, zeros mode under a rotation of up to 5 degrees."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from mono_vifi_tpu_torch.ops.image import rotation_grid
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    angle = (torch.rand((30,), generator=g, device=dev) - 0.5) * 10.0
+    gx, gy = rotation_grid(-angle, 192, 640)
+    ct = torch.rand((30, 1, 192, 640), generator=g, device=dev)
+    _check_splat(ct, TS.zeros_factors((192, 640), gx, gy), (192, 640))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("with_ids", [True, False])
+@pytest.mark.parametrize("N,C,H,W", [(60, 64, 96, 320), (6, 5, 100, 131)])
+def test_splat_scattered_grid_matches_plain_on_the_card(N, C, H, W, with_ids, dtype):
+    """Uniformly random sample points: a pixel pair's taps spread over
+    several output tiles, so most pairs sit in more than one bin and every
+    bin holds pairs from all over the cotangent (the second shape also with
+    an odd width and channels)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(8)
+    gx = torch.rand((N, H, W), generator=g, device=dev) * 2.2 - 1.1
+    gy = torch.rand((N, H, W), generator=g, device=dev) * 2.2 - 1.1
+    ids = torch.arange(N, device=dev, dtype=torch.int32) % (N // 2) if with_ids else None
+    ct = torch.randn((N, C, H, W), generator=g, device=dev).to(dtype)
+    _check_splat(ct, TS.border_factors((H, W), gx, gy), (H, W), ids,
+                 N // 2 if with_ids else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ct_dtype", [torch.bfloat16, torch.float32])
+def test_splat_writes_bf16_as_the_cast_of_its_f32_sums(ct_dtype):
+    """The Function's backward asks for the image dtype (bf16 on the
+    training step): the kernel rounds its f32 sums once, so it is within
+    one bf16 ulp of the largest value of the plain version's cast."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import math
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    ids, planes = _fusion_ids(dev)
+    gx = torch.rand((60, 48, 160), generator=g, device=dev) * 2.2 - 1.1
+    gy = torch.rand((60, 48, 160), generator=g, device=dev) * 2.2 - 1.1
+    f = [t.contiguous() for t in TS.border_factors((48, 160), gx, gy)]
+    ct = torch.randn((60, 64, 48, 160), generator=g, device=dev).to(ct_dtype)
+    args = (ct, *f, (48, 160), ids, planes)
+    got = SP.bilinear_splat(*args, out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    ref = SP.bilinear_splat_plain(*args)
+    ulp = 2.0 ** (math.floor(math.log2(ref.abs().max().item())) - 7)
+    torch.testing.assert_close(got.float(), ref.to(torch.bfloat16).float(), atol=ulp, rtol=0)
