@@ -14,7 +14,10 @@ Phases, in order; any failure exits non-zero before the last line:
      gradient, the photometric map (at both stacks' shapes, without SSIM)
      and its one-launch gradient (both also at ragged shapes and H = 3 /
      W = 3), the splat at the five fusion levels, with a scattered grid
-     and at the SADC restore, and the table sample;
+     and at the SADC restore, and the table sample (bit for bit) at the five
+     fusion levels, the multi-frame inference shape and with a grid far out
+     of range, also timed through a CUDA graph (device_ms: without the
+     host's launch cost, which dominates the small levels' ms);
   4. the full-width training step (ResNet18, 640x192, batch 10, frozen
      IFRNet-L, affine branch, shared_encoder, bf16 compute, random weights
      from a seed): 2 warm-up and 5 timed steps, finite loss and gradient
@@ -69,6 +72,36 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device time of one call: `iters` calls captured in a CUDA graph and
+    replayed between CUDA events (best of 5), so that the host's launch
+    cost, which dominates a small kernel's time_ms, is left out."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    best = math.inf
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    return best
 
 
 def bound(nbytes: float, flops: float):
@@ -316,28 +349,41 @@ def kernel_phase(device):
                "mono_vifi_tpu/ops/pallas/splat.py:166", path=True)
     out["bilinear_splat"] = variants[0] | {"variants": variants[1:]}
 
-    # kernel 5: the fusion table warp's forward at level 0 (64 channels at
-    # half resolution), on the training step (60 uses of 30 planes, bf16) and
-    # on the multi-frame inference path (8 uses of 12 planes, f32)
+    # kernel 5: the fusion table warp's forward at the five levels of the
+    # training step (60 uses of 30 planes, bf16, one launch each per step),
+    # at the multi-frame inference shape (8 uses of 12 planes, f32), and at
+    # level 0 with a grid far out of range; each bit for bit
     from mono_vifi_tpu_torch.ops.cuda import fwarp as FW
 
     variants = []
-    for b, uses, dt in ((B, TABLE_USES, torch.bfloat16), (BI, (0, 2), torch.float32)):
+    cases = [(B, TABLE_USES, torch.bfloat16, C, h, w, "smooth")
+             for C, h, w in ((64, H // 2, W // 2), (64, H // 4, W // 4),
+                             (128, H // 8, W // 8), (256, H // 16, W // 16),
+                             (512, H // 32, W // 32))]
+    cases += [(BI, (0, 2), torch.float32, 64, H // 2, W // 2, "smooth"),
+              (B, TABLE_USES, torch.bfloat16, 64, H // 2, W // 2, "far")]
+    for b, uses, dt, C, h, w, kind in cases:
         U, N = 3 * b, len(uses) * b
         ids = torch.tensor([q * b + j for q in uses for j in range(b)],
                            dtype=torch.int32, device=device)
         table = torch.randn((U, C, h, w), generator=gen, device=device).to(dt)
-        gx, gy = sampling.flow_to_grid(smooth_flow(gen, N, h, w, 10.0, 4.0, device))
-        f = [t.contiguous() for t in sampling.border_factors((h, w), gx, gy)]
-        k = FW.bilinear_sample_table(table, ids, *f)
-        p = FW.bilinear_sample_table_plain(table, ids, *f)
+        if kind == "far":  # up to three plane widths past every border
+            gx = torch.rand((N, h, w), generator=gen, device=device) * 8.0 - 4.0
+            gy = torch.rand((N, h, w), generator=gen, device=device) * 8.0 - 4.0
+        else:
+            gx, gy = sampling.flow_to_grid(smooth_flow(
+                gen, N, h, w, 10.0 * w / (W // 2), 4.0 * h / (H // 2), device))
+            gx, gy = gx.contiguous(), gy.contiguous()
+        k = FW.bilinear_sample_table(table, ids, gx, gy)
+        p = FW.bilinear_sample_table_plain(table, ids, gx, gy)
         err = (k.float() - p.float()).abs().max().item()
-        top = p.float().abs().max().item()
-        # f32: three roundings of the combine relative to the largest value;
-        # bf16: one bf16 ulp of the largest value
-        tol = 2.0**-21 * top if dt == torch.float32 else 2.0 ** (math.floor(math.log2(top)) - 7)
-        ms = time_ms(lambda: FW.bilinear_sample_table(table, ids, *f))
-        pms = time_ms(lambda: FW.bilinear_sample_table_plain(table, ids, *f), iters=5)
+        if not torch.equal(k, p):
+            raise AssertionError(f"bilinear_sample_table {tuple(table.shape)}: not bit for bit")
+        ms = time_ms(lambda: FW.bilinear_sample_table(table, ids, gx, gy))
+        dev_ms = graph_ms(lambda: FW.bilinear_sample_table(table, ids, gx, gy))
+        log(f"kernel bilinear_sample_table {tuple(table.shape)}: device_ms {dev_ms:.4f} "
+            "(CUDA graph of 20 launches)")
+        pms = time_ms(lambda: FW.bilinear_sample_table_plain(table, ids, gx, gy), iters=5)
         # one library call computing the same function: index_select of the
         # used planes then grid_sample, both timed (the grid in the table's
         # dtype, as grid_sample asks)
@@ -346,14 +392,20 @@ def kernel_phase(device):
                                             "bilinear", "border", True))
         esize = table.element_size()
         used = len(set(ids.tolist()))
-        nbytes = k.numel() * esize + 6 * N * h * w * 4 + used * C * h * w * esize + N * 4
+        # the output, the two coordinate planes, the ids, each used plane once
+        nbytes = k.numel() * esize + 2 * N * h * w * 4 + used * C * h * w * esize + N * 4
+        on_path = kind == "smooth"
         variants.append(entry(
             "bilinear_sample_table", "mono_vifi_tpu_torch/csrc/fwarp.cu",
-            "mono_vifi_tpu/ops/pallas/fwarp.py:47", err, tol, ms, pms, nbytes,
+            "mono_vifi_tpu/ops/pallas/fwarp.py:47", err, 0.0, ms, pms, nbytes,
             9.0 * k.numel(), lib,
-        ) | {"shape": f"{N} uses of {U} planes ({C}, {h}, {w}) {str(dt)[6:]}",
-             "path": "training step" if dt == torch.bfloat16 else "multi-frame inference"}
-            | ({"launch_shape": tuple(table.shape)} if dt == torch.bfloat16 else {}))
+        ) | {"device_ms": dev_ms,
+             "shape": f"{N} uses of {U} planes ({C}, {h}, {w}) {str(dt)[6:]}"
+                      + ("" if on_path else ", grid far out of range"),
+             "path": ("multi-frame inference" if dt == torch.float32
+                      else "training step" if on_path else None)}
+            | ({"launch_shape": tuple(table.shape)} if on_path else {}))
+        del k, p, table, grid
     out["bilinear_sample_table"] = variants[0] | {"variants": variants[1:]}
     return out
 
@@ -479,7 +531,7 @@ def inference_phase(device):
 
     def timed(label, run):
         """2 warm-up batches, then 10 timed and counted -> (predictions,
-        launches of the timed batches)."""
+        launches of the timed batches, the same by kernel and shape)."""
         run(batches[:2])
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -488,19 +540,19 @@ def inference_phase(device):
         pred = run(batches[2:])
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        launches = dict(cuda.LAUNCHES)
+        launches, shapes = dict(cuda.LAUNCHES), dict(cuda.LAUNCH_SHAPES)
         log(f"inference {label}: {dt / 10 * 1e3:.2f} ms/batch of {BI}, "
             f"{n_frames / dt:.2f} frames/s, peak memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches {launches}")
         if pred.shape != (n_frames, H, W) or not np.isfinite(pred).all():
             raise AssertionError(f"{label}: predictions {pred.shape} not finite")
-        return pred, launches
+        return pred, launches, shapes
 
     sf_args = ED.eval_args(["--post_process"])
-    pred_sf, _ = timed("single-frame (flip post-processing)",
+    pred_sf, _, _ = timed("single-frame (flip post-processing)",
                        lambda bs: ED.predict_disps(sf_args, bundle, (b["color_0"] for b in bs)))
     mf_args = EDM.eval_args([])
-    pred, launches = timed("multi-frame", lambda bs: EDM.predict_disps_mf(mf_args, bundle, bs))
+    pred, launches, shapes = timed("multi-frame", lambda bs: EDM.predict_disps_mf(mf_args, bundle, bs))
     if launches["bilinear_sample_table"] <= 0:
         raise AssertionError("bilinear_sample_table not launched on the multi-frame path")
 
@@ -522,7 +574,7 @@ def inference_phase(device):
         metrics = evaluation.evaluate_kitti(p, gts, "eigen", printer=log)
         if not all(math.isfinite(v) for v in metrics.values()):
             raise AssertionError(f"non-finite {label} metrics {metrics}")
-    return launches
+    return launches, shapes
 
 
 def main() -> int:
@@ -550,13 +602,14 @@ def main() -> int:
 
     kernels = kernel_phase(device)
     launches, shapes = step_phase(device)
-    inference = inference_phase(device)
+    inference, inference_shapes = inference_phase(device)
     for name, e in kernels.items():
         for v in [e] + e.get("variants", []):
-            path = inference if v.get("path") == "multi-frame inference" else launches
-            v["launches"] = path[name]
+            multi = v.get("path") == "multi-frame inference"
+            v["launches"] = (inference if multi else launches)[name]
             if "launch_shape" in v:
-                v["launches_at_shape"] = shapes.get((name, v.pop("launch_shape")), 0)
+                v["launches_at_shape"] = (inference_shapes if multi else shapes).get(
+                    (name, v.pop("launch_shape")), 0)
     log(json.dumps({"kernels": list(kernels.values())}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -29,63 +29,20 @@
 // The backward re-gathers the taps, sums over all channels in registers and
 // writes the two coordinate gradients directly.
 //
-// Exactness: every product and sum of the weights and of the combine is
-// written with __fmul_rn / __fadd_rn / __fsub_rn in the order of
-// ops/sampling.py (`factors`, `combine_taps`), so nvcc cannot contract them
-// into fused multiply-adds, and the forward equals the plain PyTorch version
-// bit for bit. The backward sums the channels in its own order.
-#include "common.cuh"
+// Exactness: the weights and the combine come from sampling.cuh, which rounds
+// every product and sum on its own in the order of ops/sampling.py, so the
+// forward equals the plain PyTorch version bit for bit. The backward sums the
+// channels in its own order.
+#include "sampling.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kChannelGroup = 4;
 
-// normalized coordinate -> pixel coordinate, ops/sampling.py `_unnormalize`
-__device__ __forceinline__ float unnormalize(float g, int size, bool align) {
-  if (align) {
-    return __fmul_rn(__fmul_rn(__fadd_rn(g, 1.0f), 0.5f), (float)(size - 1));
-  }
-  return __fmul_rn(__fsub_rn(__fmul_rn(__fadd_rn(g, 1.0f), (float)size), 1.0f),
-                   0.5f);
-}
-
-// one axis of ops/sampling.py `border_factors`: base in [0, n-2], weights
-// (1 - w, w), and whether the unclamped coordinate lies inside [0, n-1]
-// (where the clamp passes the gradient)
-struct Axis {
-  int base;
-  float w0, w1;
-  bool inside;
-};
-
-__device__ __forceinline__ Axis border_axis(float g, int n, bool align) {
-  const float u = unnormalize(g, n, align);
-  const float hi = (float)(n - 1);
-  const float v = fminf(fmaxf(u, 0.0f), hi);
-  const float b = fminf(fmaxf(floorf(v), 0.0f), (float)(n - 2));
-  const float w = __fsub_rn(v, b);
-  return {(int)b, __fsub_rn(1.0f, w), w, u >= 0.0f && u <= hi};
-}
-
-// one axis of ops/sampling.py `zeros_factors`: out-of-image taps weigh 0,
-// and where clamping the base moved the tap pair each weight stays with its
-// true row/column
-__device__ __forceinline__ Axis zeros_axis(float g, int n, bool align) {
-  const float u = unnormalize(g, n, align);
-  const float f = floorf(u);
-  const float w = __fsub_rn(u, f);
-  const float omw = __fsub_rn(1.0f, w);
-  const int i0 = __float2int_rz(f);
-  const int b = mv::clampi(i0, 0, max(n - 2, 0));
-  const bool m0 = i0 >= 0 && i0 <= n - 1;
-  const bool m1 = i0 + 1 >= 0 && i0 + 1 <= n - 1;
-  const float w0 = __fadd_rn(m0 && i0 == b ? omw : 0.0f,
-                             m1 && i0 + 1 == b ? w : 0.0f);
-  const float w1 = __fadd_rn(m0 && i0 == b + 1 ? omw : 0.0f,
-                             m1 && i0 + 1 == b + 1 ? w : 0.0f);
-  return {b, w0, w1, false};
-}
+using mv::Axis;
+using mv::border_axis;
+using mv::zeros_axis;
 
 // a tap as the plain version sees it: rounded to the tap dtype, then f32
 template <typename Ttap, typename Tin>
@@ -117,9 +74,7 @@ __global__ void __launch_bounds__(kThreads)
     const Tin* s = src + c * plane;
     const float t00 = tap<Ttap>(s), t01 = tap<Ttap>(s + 1);
     const float t10 = tap<Ttap>(s + W), t11 = tap<Ttap>(s + W + 1);
-    const float top = __fadd_rn(__fmul_rn(ax.w0, t00), __fmul_rn(ax.w1, t01));
-    const float bot = __fadd_rn(__fmul_rn(ax.w0, t10), __fmul_rn(ax.w1, t11));
-    const float r = __fadd_rn(__fmul_rn(ay.w0, top), __fmul_rn(ay.w1, bot));
+    const float r = mv::combine(ax, ay, t00, t01, t10, t11);
     dst[(int64_t)c * P] = mv::from_f32<Tin>(r);
   }
 }

@@ -34,7 +34,7 @@ SIGNATURES = {
     "mv_ssim_l1_fwd": [_P, _P, _P] + [_I] * 5 + [_P],
     "mv_ssim_l1_bwd": [_P, _P, _P, _P] + [_I] * 5 + [_P],
     "mv_bilinear_splat": [_P, _I] + [_P] * 8 + [_I, _P] + [_I] * 8 + [_P],
-    "mv_bilinear_sample_table": [_P, _I] + [_P] * 8 + [_I] * 7 + [_P],
+    "mv_bilinear_sample_table": [_P, _I] + [_P] * 4 + [_I] * 8 + [_P],
 }
 
 # seconds the last build in this process took (0.0 when the cache held it)

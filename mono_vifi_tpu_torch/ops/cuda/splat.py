@@ -10,9 +10,9 @@ from __future__ import annotations
 import torch
 
 from mono_vifi_tpu_torch.ops import cuda
-from mono_vifi_tpu_torch.ops.cuda.fwarp import bilinear_sample_table
+from mono_vifi_tpu_torch.ops.cuda.fwarp import bilinear_sample_table, bilinear_sample_table_plain
 from mono_vifi_tpu_torch.ops.cuda.warp import bilinear_sample
-from mono_vifi_tpu_torch.ops.sampling import factors
+from mono_vifi_tpu_torch.ops import sampling
 
 
 def bilinear_splat_plain(ct, ly, lx, a0, a1, c0, c1, out_hw, ids=None,
@@ -117,41 +117,48 @@ def bilinear_splat(ct, ly, lx, a0, a1, c0, c1, out_hw, ids=None,
 
 
 class _FrozenGridSample(torch.autograd.Function):
-    """Forward: with a use -> plane table, the table sample (kernel 5);
-    without, the fused sample (kernel 1) at the coordinate planes.
-    Backward: splat (kernel 4) to the image only, through the factors; the
-    grid is frozen."""
+    """Forward: with a use -> plane table, the table sample (kernel 5,
+    border mode; other modes only on the CPU, through its plain version);
+    without, the fused sample (kernel 1); both from the coordinate planes.
+    Backward: the factors of the saved coordinates, then the splat (kernel
+    4) to the image only; the grid is frozen."""
 
     @staticmethod
-    def forward(ctx, img, gx, gy, padding_mode, ly, lx, a0, a1, c0, c1, ids):
+    def forward(ctx, img, gx, gy, padding_mode, ids):
         if ids is None:
             out = bilinear_sample(img, gx, gy, padding_mode)
+        elif padding_mode == "border":
+            out = bilinear_sample_table(img, ids, gx, gy)
         else:
-            out = bilinear_sample_table(img, ids, ly, lx, a0, a1, c0, c1)
-        ctx.save_for_backward(ly, lx, a0, a1, c0, c1, ids)
+            out = bilinear_sample_table_plain(img, ids, gx, gy, padding_mode)
+        ctx.save_for_backward(gx, gy, ids)
+        ctx.padding_mode = padding_mode
         ctx.img_shape = img.shape
         ctx.img_dtype = img.dtype
         return out
 
     @staticmethod
     def backward(ctx, ct):
-        ly, lx, a0, a1, c0, c1, ids = ctx.saved_tensors
+        gx, gy, ids = ctx.saved_tensors
         U, _, H, W = ctx.img_shape
+        ly, lx, a0, a1, c0, c1 = (
+            f.contiguous() for f in sampling.factors((H, W), gx, gy, ctx.padding_mode))
         grad = bilinear_splat(
             ct.contiguous(), ly, lx, a0, a1, c0, c1, (H, W), ids, U,
             out_dtype=ctx.img_dtype,
         )
-        return (grad,) + (None,) * 10
+        return grad, None, None, None, None
 
 
 def grid_sample_frozen_grid(img, gx, gy, padding_mode: str = "border", ids=None):
     """Sample (U, C, H, W) `img` at frozen coordinate planes gx, gy (N, Ho,
     Wo) -> (N, C, Ho, Wo) in the img dtype, with a gradient to the image
     only. With `ids` (int32 (N,)), use k samples img[ids[k]] and the
-    backward sums each plane's uses."""
-    with torch.no_grad():
-        gx, gy = gx.float().contiguous(), gy.float().contiguous()
-        ly, lx, a0, a1, c0, c1 = factors(img.shape[2:], gx, gy, padding_mode)
-        a0, a1, c0, c1 = (w.contiguous() for w in (a0, a1, c0, c1))
-    return _FrozenGridSample.apply(img.contiguous(), gx, gy, padding_mode,
-                                   ly, lx, a0, a1, c0, c1, ids)
+    backward sums each plane's uses; on the card that takes border mode
+    (the fusion warp's). The bases and weights are built only in the
+    backward, so a call under torch.no_grad() builds none."""
+    if ids is not None and padding_mode != "border" and cuda.use_kernel(img):
+        raise ValueError(f"the table sample on the card is border-only, not {padding_mode}")
+    gx = gx.detach().float().contiguous()
+    gy = gy.detach().float().contiguous()
+    return _FrozenGridSample.apply(img.contiguous(), gx, gy, padding_mode, ids)

@@ -329,6 +329,27 @@ def test_splat_tile_is_the_kernels():
     assert SP.splat_tiles(17, 131) == 3 * 5
 
 
+@pytest.mark.parametrize("U,C,H,W,esize,with_ids,expected", [
+    (30, 64, 96, 320, 2, True, True), (30, 64, 48, 160, 2, True, True),
+    (30, 128, 24, 80, 2, True, False), (30, 256, 12, 40, 2, True, False),
+    (30, 512, 6, 20, 2, True, False),       # the fusion levels (60 uses), bf16
+    (12, 64, 96, 320, 4, False, False),     # multi-frame: 8 uses of 12 planes
+    (30, 64, 96, 320, 2, None, False),      # no ids: a use a block
+])
+def test_table_by_plane_follows_uses_and_table_size(U, C, H, W, esize, with_ids, expected):
+    """The table launch walks a plane a block only with more uses than
+    planes and a table larger than a third of the L2 (the fusion's levels 0
+    and 1); the deep levels' small tables, and the multi-frame path, whose
+    planes are each read once, take a use a block."""
+    from mono_vifi_tpu_torch.ops.cuda import fwarp as FW
+
+    nbytes = U * C * H * W * esize
+    ids = None if with_ids is None else torch.zeros(2 * U if with_ids else U - 4,
+                                                    dtype=torch.int32)
+    assert FW.table_by_plane(nbytes, ids, U) == expected
+    assert expected == bool(with_ids and nbytes > FW.BY_PLANE_BYTES)
+
+
 @pytest.mark.parametrize("out_dtype", [None, torch.bfloat16])
 def test_cpu_splat_returns_the_plain_sums_in_the_requested_dtype(out_dtype):
     """On CPU tensors the wrapper returns the plain version's f32 sums, cast

@@ -7,8 +7,9 @@ so it runs on a machine without JAX:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
 Tolerances: the fused sample and the table sample exact (the kernels
-round each product and sum of the weights and the combine on their own, in
-the plain version's order, then cast the same way); the sample's grid
+compute the bases and weights from the coordinates and round each product
+and sum of the weights and the combine on their own, in the plain version's
+order, then cast the same way); the sample's grid
 gradient atol 4 * C * 2^-23 * (largest size - 1) / 2 * max|ct| * max|img|
 (its channel sums run in another order than autograd's reductions, and the
 unnormalize scales them); splat atol/rtol 1e-5, and 1e-5 of the largest
@@ -48,8 +49,8 @@ def test_kernels_match_plain_on_the_card():
     gx = torch.rand((3, 40, 72), generator=g, device=dev) * 2.2 - 1.1
     gy = torch.rand((3, 40, 72), generator=g, device=dev) * 2.2 - 1.1
     cuda.reset_launch_counts()
-    ly, lx, a0, a1, c0, c1 = (t.contiguous() for t in TS.factors((40, 72), gx, gy))
-    FW.bilinear_sample_table(img, None, ly, lx, a0, a1, c0, c1)
+    assert torch.equal(FW.bilinear_sample_table(img, None, gx, gy),
+                       FW.bilinear_sample_table_plain(img, None, gx, gy))
     ct = torch.randn((3, 3, 40, 72), generator=g, device=dev)
     dgx, dgy = WP.bilinear_sample_bwd(img, gx, gy, ct)
     rgx, rgy = WP.bilinear_sample_grid_bwd_plain(img, gx, gy, ct)
@@ -80,6 +81,11 @@ def test_kernels_match_plain_on_the_card():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("U,ids,C,H,W", [
     (3, [1, 1, 0, 2, 0, 2], 64, 24, 40),   # a fusion-like table with ids
+    (3, [1, 1, 0, 2, 0, 2], 256, 12, 40),  # the deep levels: many channels,
+    (3, [1, 1, 0, 2, 0, 2], 512, 6, 20),   # small planes (8-channel slices)
+    (12, [0, 1, 2, 3, 8, 9, 10, 11], 64, 24, 40),  # multi-frame: unused planes
+    (12, [0, 1, 2, 3, 8, 9, 10, 11], 8, 64, 80),   # large planes: two-channel batches
+    (3, [2, 0, 2, 1], 12, 9, 33),          # odd output width: ragged pair stores
     (2, None, 5, 17, 131),                 # no ids, ragged width and channels
 ])
 def test_table_sample_matches_plain_on_the_card(dtype, U, ids, C, H, W):
@@ -91,15 +97,65 @@ def test_table_sample_matches_plain_on_the_card(dtype, U, ids, C, H, W):
     table = torch.randn((U, C, H, W), generator=g, device=dev).to(dtype)
     gx = torch.rand((N, H, W), generator=g, device=dev) * 2.6 - 1.3
     gy = torch.rand((N, H, W), generator=g, device=dev) * 2.6 - 1.3
-    ly, lx, a0, a1, c0, c1 = (t.contiguous() for t in TS.border_factors((H, W), gx, gy))
     ids_t = None if ids is None else torch.tensor(ids, dtype=torch.int32, device=dev)
     cuda.reset_launch_counts()
-    got = FW.bilinear_sample_table(table, ids_t, ly, lx, a0, a1, c0, c1)
+    got = FW.bilinear_sample_table(table, ids_t, gx, gy)
     torch.cuda.synchronize()
     assert cuda.LAUNCHES["bilinear_sample_table"] == 1
-    ref = FW.bilinear_sample_table_plain(table, ids_t, ly, lx, a0, a1, c0, c1)
+    ref = FW.bilinear_sample_table_plain(table, ids_t, gx, gy)
     assert got.dtype == dtype
     assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,W,kind", [
+    (96, 320, "smooth"),   # the fusion's level 0 planes
+    (97, 321, "smooth"),   # odd width: ragged pair stores
+    (96, 320, "far"),      # up to three plane widths past every border
+])
+def test_table_sample_by_plane_matches_plain_on_the_card(dtype, H, W, kind):
+    """A table of more than FW.BY_PLANE_BYTES is walked a plane a block,
+    each plane's uses in turn: 12 uses of 6 planes of 64 channels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import math
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(10)
+    U, C = 6, 64
+    ids = torch.tensor([q * 2 + j for q in (1, 1, 0, 2, 0, 2) for j in range(2)],
+                       dtype=torch.int32, device=dev)
+    N = len(ids)
+    table = torch.randn((U, C, H, W), generator=g, device=dev).to(dtype)
+    assert FW.table_by_plane(table.numel() * table.element_size(), ids, U)
+    if kind == "smooth":
+        ys = torch.linspace(0, 2 * math.pi, H, device=dev).view(1, H, 1)
+        xs = torch.linspace(0, 2 * math.pi, W, device=dev).view(1, 1, W)
+        ph = torch.rand((2, N, 1, 1), generator=g, device=dev) * 2 * math.pi
+        flow = torch.stack([10.0 * torch.sin(ys + ph[0]).expand(N, H, W),
+                            4.0 * torch.cos(xs + ph[1]).expand(N, H, W)], 1)
+        gx, gy = (t.contiguous() for t in TS.flow_to_grid(flow))
+    else:
+        gx = torch.rand((N, H, W), generator=g, device=dev) * 8.0 - 4.0
+        gy = torch.rand((N, H, W), generator=g, device=dev) * 8.0 - 4.0
+    got = FW.bilinear_sample_table(table, ids, gx, gy)
+    torch.cuda.synchronize()
+    assert torch.equal(got, FW.bilinear_sample_table_plain(table, ids, gx, gy))
+
+
+@pytest.mark.gpu
+def test_table_warp_other_than_border_raises_on_the_card():
+    """The table kernel is border-only: a zeros-mode table warp of CUDA
+    tensors raises rather than sample in another mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    table = torch.rand((2, 3, 8, 8), device=dev)
+    g = torch.rand((2, 8, 8), device=dev) * 2 - 1
+    ids = torch.tensor([1, 0], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="border-only"):
+        SP.grid_sample_frozen_grid(table, g, g, "zeros", ids)
 
 
 @pytest.mark.gpu
