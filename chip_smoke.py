@@ -15,9 +15,10 @@ Phases, in order; any failure exits non-zero before the last line:
      and its one-launch gradient (both also at ragged shapes and H = 3 /
      W = 3), the splat at the five fusion levels, with a scattered grid
      and at the SADC restore, and the table sample (bit for bit) at the five
-     fusion levels, the multi-frame inference shape and with a grid far out
-     of range, also timed through a CUDA graph (device_ms: without the
-     host's launch cost, which dominates the small levels' ms);
+     fusion levels of each of its paths (the training step, the multi-frame
+     inference and phase 7's per-epoch multi-frame evaluation) and with a
+     grid far out of range, also timed through a CUDA graph (device_ms:
+     without the host's launch cost, which dominates the small levels' ms);
   4. the full-width training step (ResNet18, 640x192, batch 10, frozen
      IFRNet-L, affine branch, shared_encoder, bf16 compute, random weights
      from a seed): 2 warm-up and 5 timed steps, finite loss and gradient
@@ -35,7 +36,27 @@ Phases, in order; any failure exits non-zero before the last line:
      (max abs error 1e-5); the KITTI eigen protocol over the timed
      predictions against synthetic ground truths (finite; random weights,
      so the numbers say nothing of accuracy);
-  7. one JSON line describing every kernel, then the result line.
+  7. the training driver (`mono_vifi_tpu_torch.train.Trainer`) from
+     configs/resnet18/ResNet18_KITTI_MR.txt at its full width (ResNet18,
+     640x192, batch 10, affine, shared_encoder, bf16, IFRNet-L in the step
+     and IFRNet-S in evaluation; random weights from the config's seed) on a
+     synthetic KITTI-raw tree written to a temporary directory (one drive of
+     62 uint8 PNG frames at the native 1242x375 from a numpy seed, train
+     and test splits of 60 and 8 lines, sparse synthetic ground truths):
+     epoch 0 (6 steps through the real dataset, sampler, threaded loader
+     and device prefetch; a mid-epoch checkpoint after step 4), its single-
+     and multi-frame evaluation (the table sample launched at each shape
+     phase 3 checked for it; the multi-frame disparities with the kernels
+     against every plain version, max abs error 1e-5) and epoch-end save;
+     then a second trainer
+     with `resume` that must come back at epoch 1, step 6 with the saved
+     optimizer moments and BatchNorm buffers bit for bit, and runs epoch 1.
+     Finite losses and metrics, every kernel launched in the driver's steps
+     and the table sample in its multi-frame evaluation; the driver's data
+     wait and step time, samples/s over each epoch and over the timed window
+     of its warm steps 2-6, and peak memory beside the card's name and power
+     limit;
+  8. one JSON line describing every kernel, then the result line.
 """
 
 from __future__ import annotations
@@ -50,6 +71,8 @@ import numpy as np
 
 B, H, W = 10, 192, 640
 BI = 4  # the evaluation entry points' default batch
+N_TEST = 8  # phase 7's test split: one evaluation batch of 8 (batch_size 10)
+DRIVER_EVAL = "training driver's per-epoch multi-frame evaluation"
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_FLOP_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 
@@ -349,20 +372,26 @@ def kernel_phase(device):
                "mono_vifi_tpu/ops/pallas/splat.py:166", path=True)
     out["bilinear_splat"] = variants[0] | {"variants": variants[1:]}
 
-    # kernel 5: the fusion table warp's forward at the five levels of the
-    # training step (60 uses of 30 planes, bf16, one launch each per step),
-    # at the multi-frame inference shape (8 uses of 12 planes, f32), and at
-    # level 0 with a grid far out of range; each bit for bit
+    # kernel 5: the fusion table warp's forward at the five levels of each of
+    # its paths, one launch each per step or batch: the training step (60
+    # uses of 30 planes, bf16), the multi-frame inference (8 uses of 12
+    # planes, f32) and the training driver's per-epoch multi-frame
+    # evaluation (16 uses of 24 planes, bf16: every plane used once, so a
+    # use a block where the step's large levels go a plane a block); then
+    # level 0 of the step with a grid far out of range; each bit for bit
     from mono_vifi_tpu_torch.ops.cuda import fwarp as FW
 
+    levels = ((64, H // 2, W // 2), (64, H // 4, W // 4), (128, H // 8, W // 8),
+              (256, H // 16, W // 16), (512, H // 32, W // 32))
     variants = []
-    cases = [(B, TABLE_USES, torch.bfloat16, C, h, w, "smooth")
-             for C, h, w in ((64, H // 2, W // 2), (64, H // 4, W // 4),
-                             (128, H // 8, W // 8), (256, H // 16, W // 16),
-                             (512, H // 32, W // 32))]
-    cases += [(BI, (0, 2), torch.float32, 64, H // 2, W // 2, "smooth"),
-              (B, TABLE_USES, torch.bfloat16, 64, H // 2, W // 2, "far")]
-    for b, uses, dt, C, h, w, kind in cases:
+    cases = [(B, TABLE_USES, torch.bfloat16, C, h, w, "smooth", "training step")
+             for C, h, w in levels]
+    cases += [(BI, (0, 2), torch.float32, C, h, w, "smooth", "multi-frame inference")
+              for C, h, w in levels]
+    cases += [(N_TEST, (0, 2), torch.bfloat16, C, h, w, "smooth", DRIVER_EVAL)
+              for C, h, w in levels]
+    cases += [(B, TABLE_USES, torch.bfloat16, 64, H // 2, W // 2, "far", None)]
+    for b, uses, dt, C, h, w, kind, path in cases:
         U, N = 3 * b, len(uses) * b
         ids = torch.tensor([q * b + j for q in uses for j in range(b)],
                            dtype=torch.int32, device=device)
@@ -394,17 +423,15 @@ def kernel_phase(device):
         used = len(set(ids.tolist()))
         # the output, the two coordinate planes, the ids, each used plane once
         nbytes = k.numel() * esize + 2 * N * h * w * 4 + used * C * h * w * esize + N * 4
-        on_path = kind == "smooth"
         variants.append(entry(
             "bilinear_sample_table", "mono_vifi_tpu_torch/csrc/fwarp.cu",
             "mono_vifi_tpu/ops/pallas/fwarp.py:47", err, 0.0, ms, pms, nbytes,
             9.0 * k.numel(), lib,
         ) | {"device_ms": dev_ms,
              "shape": f"{N} uses of {U} planes ({C}, {h}, {w}) {str(dt)[6:]}"
-                      + ("" if on_path else ", grid far out of range"),
-             "path": ("multi-frame inference" if dt == torch.float32
-                      else "training step" if on_path else None)}
-            | ({"launch_shape": tuple(table.shape)} if on_path else {}))
+                      + ("" if path else ", grid far out of range"),
+             "path": path}
+            | ({"launch_shape": tuple(table.shape)} if path else {}))
         del k, p, table, grid
     out["bilinear_sample_table"] = variants[0] | {"variants": variants[1:]}
     return out
@@ -577,6 +604,168 @@ def inference_phase(device):
     return launches, shapes
 
 
+def write_kitti_tree(root, n_frames: int = 62, n_test: int = N_TEST):
+    """A KITTI-raw drive of uint8 PNG frames at the native 1242x375 (a
+    smooth colour field panning across the frames, plus noise, from a numpy
+    seed), train and test split files and sparse synthetic ground truths;
+    -> the splits root."""
+    import os
+
+    from PIL import Image
+
+    rng = np.random.default_rng(5)
+    drive = "2011_09_26/2011_09_26_drive_0001_sync"
+    img_dir = os.path.join(root, "kitti", drive, "image_02", "data")
+    os.makedirs(img_dir)
+    ys, xs = np.mgrid[0:375, 0:1242 + 4 * n_frames] / 60.0
+    ph = rng.uniform(0, 2 * np.pi, (3, 2))
+    field = np.stack([127.5 + 100.0 * np.sin(xs + ph[c, 0]) * np.cos(ys + ph[c, 1])
+                      for c in range(3)], -1).astype(np.uint8)
+    for i in range(n_frames):  # the camera pans 4 pixels a frame
+        img = field[:, 4 * i:4 * i + 1242] + rng.integers(0, 16, (375, 1242, 3), np.uint8)
+        Image.fromarray(img).save(os.path.join(img_dir, f"{i:010d}.png"), compress_level=1)
+    splits = os.path.join(root, "splits")
+    lines = [f"{drive} {i} l" for i in range(1, n_frames - 1)]
+    for split, files in (("smoke", lines), ("eigen", lines[:n_test])):
+        os.makedirs(os.path.join(splits, "kitti", split))
+        for kind in ("train", "test"):
+            with open(os.path.join(splits, "kitti", split, f"{kind}_files.txt"), "w") as f:
+                f.write("\n".join(files))
+    gts = [rng.uniform(1.0, 80.0, (375, 1242)).astype(np.float32) for _ in range(n_test)]
+    for g in gts:
+        g[rng.random(g.shape) < 0.8] = 0.0  # sparse, like projected lidar
+    np.savez_compressed(os.path.join(splits, "kitti", "eigen", "gt_depths.npz"),
+                        data=np.array(gts, dtype=object))
+    return splits
+
+
+def driver_phase(card: str) -> dict:
+    """Phase 7: the training driver at full width on real PNG decoding:
+    epoch 0, its evaluation and save, a resumed trainer, epoch 1."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import torch
+
+    from mono_vifi_tpu_torch import train as T
+    from mono_vifi_tpu_torch.config import parse_options
+    from mono_vifi_tpu_torch.ops import cuda
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        T.SPLITS_DIR = write_kitti_tree(tmp)
+        log(f"driver: synthetic KITTI tree written in {time.perf_counter() - t0:.1f} s")
+        cfg = parse_options([
+            "-c", "configs/resnet18/ResNet18_KITTI_MR.txt",
+            "--data_path", os.path.join(tmp, "kitti"), "--log_dir", os.path.join(tmp, "logs"),
+            "--split", "smoke", "--eval_split", "eigen", "--num_epochs", "2",
+            "--save_frequency", "3", "--log_frequency", "1", "--weights_init", "scratch",
+            "--device", "cuda", "--resume", "False",
+        ])
+        log(f"driver: {cfg.exp_name}, {cfg.backbone} {cfg.width}x{cfg.height}, batch "
+            f"{cfg.batch_size}, affine {cfg.use_affine}, {cfg.fuse_model_type}, "
+            f"{cfg.compute_dtype}, VFI {cfg.vfi_train_scale} / {cfg.vfi_test_scale}, "
+            f"{cfg.num_workers} loader threads")
+        t1 = T.Trainer(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        t1.run_epoch(0)
+        torch.cuda.synchronize()
+        wall0 = time.perf_counter() - t0
+        steps, step_shapes = dict(cuda.LAUNCHES), dict(cuda.LAUNCH_SHAPES)
+        mid = torch.load(t1.ckpt_path, map_location="cpu", weights_only=True)
+        if (mid["epoch"], mid["batch_idx"], mid["step_in_total"]) != (0, 4, 4):
+            raise AssertionError(f"mid-epoch checkpoint at {mid['epoch']}, "
+                                 f"{mid['batch_idx']}, {mid['step_in_total']}")
+        log("driver: mid-epoch checkpoint at epoch 0, batch_idx 4, step 4")
+        del mid
+        cuda.reset_launch_counts()
+        t1.end_epoch(0)
+        evals, eval_shapes = dict(cuda.LAUNCHES), dict(cuda.LAUNCH_SHAPES)
+        if evals["bilinear_sample_table"] <= 0:
+            raise AssertionError("bilinear_sample_table not launched in the driver's eval")
+        # the evaluation's disparities with the kernels against every plain
+        # version, on the trained bf16 weights and the test split's frames
+        dk = t1._predict_disps(multi_frame=True)
+        with cuda.plain_versions():
+            dp = t1._predict_disps(multi_frame=True)
+        err = float(np.abs(dk - dp).max())
+        log(f"driver: multi-frame evaluation disparities, kernels vs plain: max abs error "
+            f"{err:.3e} (tol 1e-5)")
+        if not err <= 1e-5:
+            raise AssertionError(f"driver's multi-frame disparities differ: {err}")
+        saved = torch.load(t1.ckpt_path, map_location="cpu", weights_only=True)
+        if not os.path.exists(os.path.join(t1.log_path, "models", "model_0.pth")):
+            raise AssertionError("no models/model_0.pth")
+        history0, results = t1.history, dict(t1.eval_results)
+        t1.close()
+        del t1
+
+        t2 = T.Trainer(dataclasses.replace(cfg, resume=True))
+        at = (t2.ep_start, t2.batch_start, t2.state.step)
+        if at != (1, 0, 6):
+            raise AssertionError(f"resumed at epoch, batch, step {at}, expected (1, 0, 6)")
+        got = t2.state.optimizer.state_dict()["state"]
+        for i, s in saved["optimizer"]["state"].items():
+            for k, v in s.items():
+                if not torch.equal(got[i][k].cpu(), v):
+                    raise AssertionError(f"optimizer state {i}.{k} differs after resume")
+        for role, m in t2.bundle.trainable_roles().items():
+            for k, v in m.state_dict().items():
+                if not torch.equal(v.cpu(), saved[role][k]):
+                    raise AssertionError(f"{role}.{k} differs after resume")
+        log(f"driver: resumed at epoch 1, step 6; {len(got)} optimizer states and every "
+            "weight and BatchNorm buffer equal to the saved ones bit for bit")
+        del saved
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        t2.run_epoch(1)
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+        for k, v in cuda.LAUNCHES.items():
+            steps[k] += v
+        for k, v in cuda.LAUNCH_SHAPES.items():
+            step_shapes[k] = step_shapes.get(k, 0) + v
+        t2.end_epoch(1)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        history1 = t2.history
+        results.update(t2.eval_results)
+        t2.close()
+
+    missing = [k for k, v in steps.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in the driver's steps: {missing}")
+    losses = [h["loss"] for h in history0 + history1]
+    if len(losses) != 12 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"driver losses {losses}")
+    if len(results) != 4:
+        raise AssertionError(f"evaluations missing: {sorted(results)}")
+    for key, res in results.items():
+        if not all(math.isfinite(v) for v in res.values()):
+            raise AssertionError(f"non-finite metrics {key}: {res}")
+    for label, hist, wall in (("epoch 0", history0, wall0),
+                              ("epoch 1, resumed", history1, wall1)):
+        data = [h["data_s"] * 1e3 for h in hist]
+        step = [h["step_s"] * 1e3 for h in hist]
+        # the warm window: from the end of step 1 to the end of step 6, the
+        # mid-epoch checkpoint after step 4 inside it
+        window = hist[-1]["t"] - hist[0]["t"]
+        other = window * 1e3 - sum(data[1:]) - sum(step[1:])
+        log(f"driver {label} ({card}): {len(hist)} steps; data wait {np.mean(data):.1f} "
+            f"ms/step (steps 2-6: {np.mean(data[1:]):.1f}), step {np.mean(step):.1f} ms/step "
+            f"(steps 2-6: {np.mean(step[1:]):.1f}); {len(hist) * B / wall:.2f} samples/s "
+            f"over the epoch, {(len(hist) - 1) * B / window:.2f} over the timed window of "
+            f"steps 2-6 ({window * 1e3:.1f} ms, of which {other:.1f} ms outside data wait and "
+            "step: logging and the mid-epoch checkpoint), on the host clock")
+    log(f"driver ({card}): peak memory {peak:.2f} GiB")
+    log(f"driver: launches over the 12 steps {steps}; in the epoch-0 evaluation {evals}")
+    return {"steps": steps, "step_shapes": step_shapes, "eval": evals,
+            "eval_shapes": eval_shapes}
+
+
 def main() -> int:
     import torch
 
@@ -603,13 +792,31 @@ def main() -> int:
     kernels = kernel_phase(device)
     launches, shapes = step_phase(device)
     inference, inference_shapes = inference_phase(device)
+    driver = driver_phase(card)
+    # each variant's counts are those of the path it belongs to: the training
+    # step's (phase 4, and the driver's 12 steps as driver_launches), the
+    # multi-frame inference's (phase 6) or the driver's evaluation (phase 7);
+    # a variant on no path carries its kernel's phase-4 count
     for name, e in kernels.items():
         for v in [e] + e.get("variants", []):
-            multi = v.get("path") == "multi-frame inference"
-            v["launches"] = (inference if multi else launches)[name]
-            if "launch_shape" in v:
-                v["launches_at_shape"] = (inference_shapes if multi else shapes).get(
-                    (name, v.pop("launch_shape")), 0)
+            path = v.get("path")
+            if path == "multi-frame inference":
+                counts, by_shape = inference, inference_shapes
+            elif path == DRIVER_EVAL:
+                counts, by_shape = driver["eval"], driver["eval_shapes"]
+            else:
+                counts, by_shape = launches, shapes
+            v["launches"] = counts[name]
+            if "launch_shape" not in v:
+                continue
+            shape = v.pop("launch_shape")
+            v["launches_at_shape"] = by_shape.get((name, shape), 0)
+            if path in ("multi-frame inference", DRIVER_EVAL):
+                if v["launches_at_shape"] <= 0:
+                    raise AssertionError(f"{name} not launched at {shape} on the {path}")
+            else:
+                v["driver_launches"] = driver["steps"][name]
+                v["driver_launches_at_shape"] = driver["step_shapes"].get((name, shape), 0)
     log(json.dumps({"kernels": list(kernels.values())}))
     log(card)
     log(json.dumps({"ok": True, "device": {

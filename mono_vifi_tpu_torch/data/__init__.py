@@ -1,10 +1,11 @@
-"""Host-side data pipeline of the evaluation entry points (the port's copy
-of the eval-mode parts of mono_vifi_tpu/data/): datasets that decode and
-resize frames with PIL into NHWC float32 numpy arrays, and a threaded
-prefetching loader that collates them into batches. PIL is imported where
-an image is read, never at import time. The training pipeline (augmentation,
-affine branch, samplers) is not ported yet."""
+"""Host-side data pipeline (the port's copy of mono_vifi_tpu/data/ for KITTI
+and Cityscapes): datasets that decode, augment and resize frames with PIL
+into NHWC numpy arrays (training and evaluation), the stateful resumable
+samplers, a threaded prefetching loader that collates batches, and
+`device_prefetch`, which copies them to the card ahead of the step. PIL is
+imported where an image is read, never at import time."""
 
 from mono_vifi_tpu_torch.data.cityscapes import CityscapesDataset
-from mono_vifi_tpu_torch.data.kitti import KITTIRAWDataset
-from mono_vifi_tpu_torch.data.loader import DataLoader
+from mono_vifi_tpu_torch.data.kitti import KITTIDepthDataset, KITTIOdomDataset, KITTIRAWDataset
+from mono_vifi_tpu_torch.data.loader import DataLoader, device_prefetch
+from mono_vifi_tpu_torch.data.samplers import StatefulDistributedSampler, StatefulSampler

@@ -1,7 +1,9 @@
 """Threaded prefetching batch loader (the port's copy of
-mono_vifi_tpu/data/loader.py without the samplers): a thread pool decodes
-samples ahead of the consumer (PIL and numpy release the GIL for the hot
-parts), and batches are collated into fixed-shape numpy dicts."""
+mono_vifi_tpu/data/loader.py): a thread pool decodes samples ahead of the
+consumer (PIL and numpy release the GIL for the hot parts), batches are
+collated into fixed-shape numpy dicts in the sampler's order, and
+`device_prefetch` copies each batch to the card while the step before it
+runs. The stateful samplers' epoch / start_iter protocol resumes an epoch."""
 
 from __future__ import annotations
 
@@ -10,6 +12,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator
 
 import numpy as np
+import torch
 
 
 def collate(samples: list[dict]) -> dict:
@@ -17,24 +20,25 @@ def collate(samples: list[dict]) -> dict:
 
 
 class DataLoader:
-    """Map-style dataset -> iterator of batched numpy dicts, in index order."""
+    """Map-style dataset (+ sampler) -> iterator of batched numpy dicts."""
 
-    def __init__(self, dataset, batch_size: int, num_workers: int = 4,
+    def __init__(self, dataset, batch_size: int, sampler=None, num_workers: int = 4,
                  drop_last: bool = True, prefetch: int = 2):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.sampler = sampler
         self.num_workers = max(1, num_workers)
         self.drop_last = drop_last
         self.prefetch = prefetch
 
     def __len__(self):
-        n = len(self.dataset)
+        n = len(self.sampler) if self.sampler is not None else len(self.dataset)
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
     def __iter__(self) -> Iterator[dict]:
-        indices = list(range(len(self.dataset)))
+        indices = list(self.sampler if self.sampler is not None else range(len(self.dataset)))
         batches = [indices[i:i + self.batch_size]
                    for i in range(0, len(indices), self.batch_size)]
         if self.drop_last:
@@ -62,3 +66,51 @@ class DataLoader:
                     submit(next_submit)
                     next_submit += 1
                 yield collate(samples)
+
+
+def device_prefetch(iterator, device, size: int = 2):
+    """Batches of numpy arrays -> the same batches as tensors on `device`,
+    `size` batches ahead of the consumer (the counterpart of the JAX
+    package's double-buffered device_put).
+
+    On a card each batch is staged in pinned host memory and copied with
+    `non_blocking=True` on a side stream, so the copy of the next batch runs
+    while the current step's kernels do; the consumer's stream waits for the
+    copy before the batch is handed over. dtypes are kept: uint8 planes
+    travel as uint8 and `training.monovifi.prepare_batch` dequantizes them on
+    the device. A pinned host batch is held until the consumer asks for the
+    next batch, that is, until the step that reads its device copy has been
+    enqueued."""
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    copy_stream = torch.cuda.Stream(device) if on_card else None
+    q = collections.deque()
+
+    def put(batch):
+        host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+        if not on_card:
+            return host, {k: v.to(device) for k, v in host.items()}, None
+        host = {k: v.pin_memory() for k, v in host.items()}
+        with torch.cuda.stream(copy_stream):
+            dev = {k: v.to(device, non_blocking=True) for k, v in host.items()}
+            done = torch.cuda.Event()
+            done.record(copy_stream)
+        return host, dev, done
+
+    it = iter(iterator)
+    for batch in it:
+        q.append(put(batch))
+        if len(q) >= size:
+            break
+    while q:
+        host, dev, done = q.popleft()
+        for batch in it:
+            q.append(put(batch))
+            break
+        if done is not None:
+            stream = torch.cuda.current_stream(device)
+            stream.wait_event(done)
+            for v in dev.values():
+                v.record_stream(stream)
+        yield dev
+        del host

@@ -66,7 +66,7 @@ def load_model(args, dataset_tag: str):
     vfi_path = os.path.join(args.weights_dir, f"IFRNet_{tag}_{dataset_tag}.pth")
     if os.path.exists(vfi_path):
         print(f"-> Loading frozen VFI from {vfi_path}")
-        ckpt_lib.load_vfi_pth(vfi_path, bundle)
+        ckpt_lib.load_vfi(vfi_path, bundle)
     else:
         print(f"!! VFI weights not found at {vfi_path}; using random init")
     n = count_params(bundle.encoder, bundle.depth_mf, bundle.fusion_module)

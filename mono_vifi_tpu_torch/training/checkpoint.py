@@ -1,10 +1,22 @@
-"""Loading weights for evaluation (counterpart of the load side of
-mono_vifi_tpu/training/checkpoint.py; reference train.py:1108-1176).
+"""Checkpoints of the port (counterpart of mono_vifi_tpu/training/checkpoint.py;
+reference train.py:1108-1176).
 
-Two formats:
-  - a reference `.pth` dict keyed by role (encoder / depth / encoder_mf /
-    depth_mf / fusion_module / pose_encoder / pose / VFI). The port's modules
-    use the reference key schema, so the state_dicts load as they are;
+Saving writes the reference's own `.pth` schema, which the loaders below
+and the JAX package's `load_reference_pth` read:
+  - `ckpt.pth`: a state_dict per trainable role (encoder / depth /
+    depth_mf / encoder_mf / fusion_module / pose_encoder / pose, BatchNorm
+    buffers included), `optimizer` (the optimizer's state_dict), `epoch`,
+    `batch_idx`, `step_in_total`, `height`, `width`, `use_stereo`; a
+    mid-epoch save every save_frequency batches gives step-granular resume
+    together with the stateful sampler;
+  - `models/model_{ep}.pth`: the role state_dicts and the scalars only.
+Both are written to a temporary file that `os.replace` puts in place.
+
+Loading takes two formats:
+  - a reference `.pth` dict keyed by role (as above, or a released
+    checkpoint, or a reference IFRNet file's `VFI` entry). The port's
+    modules use the reference key schema, so the state_dicts load as they
+    are;
   - a weight-only `.pkl` snapshot of the JAX package (`save_weights`: numpy
     parameter trees per role, an optional `batch_stats`, and scalars), which
     goes through the port's Flax -> port converter. It is unpickled by an
@@ -18,6 +30,7 @@ shape keep their init values, each named in a warning.
 from __future__ import annotations
 
 import logging
+import os
 import pickle
 
 import torch
@@ -84,11 +97,58 @@ def load_reference_pth(path: str, bundle, multi_frame: bool = False) -> list[str
     return load_roles(bundle, role_sds)
 
 
-def load_vfi_pth(path: str, bundle) -> list[str]:
-    """Load the frozen evaluation VFI from a reference IFRNet `.pth` (its
-    `VFI` entry) into `bundle.vfi_test`."""
+def load_vfi(path: str, bundle, role: str = "vfi_test") -> list[str]:
+    """Load a frozen IFRNet into `bundle.<role>` (`vfi_test` or `vfi_train`)
+    from a reference IFRNet `.pth` (its `VFI` entry) or a JAX weight-only
+    `.pkl` holding `params["VFI"]`."""
+    if path.endswith(".pth"):
+        sd = torch.load(path, map_location="cpu", weights_only=True)["VFI"]
+    else:
+        sd = convert.ifrnet(load_weights_pkl(path)["params"]["VFI"])
+    return load_roles(bundle, {role: sd})
+
+
+def _scalars(cfg) -> dict:
+    return {"height": cfg.height, "width": cfg.width, "use_stereo": cfg.use_stereo}
+
+
+def _save(payload: dict, path: str) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+
+
+def _role_state_dicts(bundle) -> dict:
+    return {role: {k: v.detach().cpu() for k, v in m.state_dict().items()}
+            for role, m in bundle.trainable_roles().items()}
+
+
+def save_weights(path: str, bundle, cfg) -> None:
+    """Per-epoch weight snapshot (reference models/model_{ep}.pth)."""
+    _save(_role_state_dicts(bundle) | _scalars(cfg), path)
+
+
+def save_checkpoint(path: str, state, cfg, epoch: int, batch_idx: int = 0) -> None:
+    """The resumable checkpoint: weights, optimizer state and position."""
+    _save(_role_state_dicts(state.bundle) | _scalars(cfg) | {
+        "optimizer": state.optimizer.state_dict(),
+        "epoch": epoch, "batch_idx": batch_idx, "step_in_total": int(state.step),
+    }, path)
+
+
+def load_checkpoint(path: str, state) -> tuple[int, int]:
+    """Resume `state` from a `save_checkpoint` file: the role weights and
+    BatchNorm buffers (tolerant), the optimizer state and the update count;
+    -> (epoch, batch_idx) to resume at. The file is read onto the host and
+    each tensor is copied to its parameter's device by the loads, so the
+    optimizer's step counters stay on the host as a fresh optimizer keeps
+    them."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    return load_roles(bundle, {"vfi_test": ckpt["VFI"]})
+    load_roles(state.bundle, {r: ckpt[r] for r in ROLES if r in ckpt})
+    state.optimizer.load_state_dict(ckpt["optimizer"])
+    state.step = int(ckpt["step_in_total"])
+    return int(ckpt["epoch"]), int(ckpt["batch_idx"])
 
 
 _NUMPY_GLOBALS = {

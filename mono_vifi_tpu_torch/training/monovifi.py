@@ -35,6 +35,7 @@ from mono_vifi_tpu_torch.training.factory import ModelBundle, build_bundle, reso
 from mono_vifi_tpu_torch.training.optim import (
     clip_by_global_norm_, global_norm, lr_schedule, make_optimizer,
 )
+from mono_vifi_tpu_torch.training.pretrained import apply_pretrained
 
 # stacked-target bookkeeping of the JAX package (monovifi.py:421-487)
 IDENT_REUSE = (0, 1, 2, 0, 2, 1)  # identity maps of targets (0, pt, nt, 0, nt, pt)
@@ -380,9 +381,11 @@ def apply_gradients(state: TrainState, clip_grad: float) -> torch.Tensor:
 
 def create_train_state(cfg: Options, seed: int = 0, steps_per_epoch: int = 1000,
                        device=None) -> TrainState:
-    """Build the models from `seed` on `device` (CUDA unless given) and the
-    optimizer over every trainable parameter."""
+    """Build the models from `seed` on `device` (CUDA unless given), load
+    the ImageNet encoders when weights_init="pretrained" (reference
+    train.py:142-190), and the optimizer over every trainable parameter."""
     bundle = build_bundle(cfg, seed, device)
+    apply_pretrained(cfg, bundle)
     params = [p for p in bundle.parameters() if p.requires_grad]
     return TrainState(
         step=0, bundle=bundle, optimizer=make_optimizer(cfg, params),

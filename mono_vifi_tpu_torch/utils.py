@@ -1,10 +1,15 @@
 """Small utilities of the entry points (counterpart of
-mono_vifi_tpu/utils/__init__.py; reference utils.py): file lists, parameter
-counts, and a FLOP count for the evaluation report, taken with PyTorch's
-FlopCounterMode where the JAX entry points use XLA's cost analysis.
+mono_vifi_tpu/utils/__init__.py; reference utils.py): file lists, time
+formatting, logging set-up, parameter counts, and a FLOP count for the
+evaluation report, taken with PyTorch's FlopCounterMode where the JAX entry
+points use XLA's cost analysis.
 """
 
 from __future__ import annotations
+
+import logging
+import os
+import sys
 
 import torch
 import torch.nn as nn
@@ -13,6 +18,34 @@ import torch.nn as nn
 def readlines(filename: str) -> list[str]:
     with open(filename, "r") as f:
         return f.read().splitlines()
+
+
+def sec_to_hm(t: float) -> tuple[int, int, int]:
+    t = int(t)
+    s = t % 60
+    t //= 60
+    m = t % 60
+    t //= 60
+    return t, m, s
+
+
+def sec_to_hm_str(t: float) -> str:
+    h, m, s = sec_to_hm(t)
+    return f"{h:02d}h{m:02d}m{s:02d}s"
+
+
+def setup_logging(filename: str | None = None, filemode: str = "w"):
+    """INFO logging to the console and an optional per-experiment log file."""
+    handlers: list[logging.Handler] = [logging.StreamHandler(sys.stdout)]
+    if filename is not None:
+        os.makedirs(os.path.dirname(filename) or ".", exist_ok=True)
+        handlers.append(logging.FileHandler(filename, mode=filemode))
+    logging.basicConfig(
+        level=logging.INFO,
+        format="%(asctime)s %(levelname)s %(message)s",
+        handlers=handlers,
+        force=True,
+    )
 
 
 def count_params(*modules: nn.Module) -> int:

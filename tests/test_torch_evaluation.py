@@ -160,6 +160,16 @@ def test_loader_batches_match_jax(kitti_dir, num_workers):
         _assert_items_equal(a, b)
 
 
-def test_training_mode_is_not_ported(kitti_dir):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        KITTIRAWDataset(str(kitti_dir), KITTI_FILES, 64, 96, [0], 1, is_train=True)
+def test_training_mode_is_ported_for_kitti(kitti_dir):
+    """KITTI's (and Cityscapes') training items are ported; they equal the
+    JAX package's in tests/test_torch_data_train.py."""
+    item = KITTIRAWDataset(str(kitti_dir), KITTI_FILES, 64, 96, [0], 1, is_train=True)[0]
+    assert item["color_0"].shape == (64, 96, 3)
+
+
+def test_training_mode_is_not_ported():
+    """NYUv2's training mode is not ported: the trainer refuses it."""
+    from mono_vifi_tpu_torch import train
+
+    with pytest.raises(NotImplementedError, match="item 12"):
+        train.dataset_class("nyuv2")
