@@ -56,7 +56,25 @@ Phases, in order; any failure exits non-zero before the last line:
      wait and step time, samples/s over each epoch and over the timed window
      of its warm steps 2-6, and peak memory beside the card's name and power
      limit;
-  8. one JSON line describing every kernel, then the result line.
+  8. the LiteMono and D-HRNet training steps (configs/litemono/
+     LiteMono_KITTI_MR.txt: batch 8; configs/dhrnet/DHRNet_KITTI_MR.txt:
+     batch 6; each 640x192, affine, shared_encoder, bf16, IFRNet-L, parsed
+     through `parse_options` as a user runs them, random weights from a
+     seed) as phases 4 and 5: ms/step, samples/s and peak memory; every
+     kernel's launches, by shape (each shape phase 3 checked for the path
+     launched > 0); loss terms and the pose net's gradient norm kernels vs
+     plain (rel 1e-3) on the same weights, batch, noise and LiteMono
+     stochastic-depth masks;
+  9. multi-frame inference of LiteMono, D-HRNet and ResNet50 (and the
+     single-frame one of the first two) as phase 6: ms/batch, frames/s,
+     the table sample's launches (> 0, and at each shape phase 3 checked
+     for the path), disparities kernels vs plain within 1e-5;
+ 10. the whole run's time, one JSON line describing every kernel (each
+     variant's launches those of its own path), then the result line.
+
+Phase 3 also checks and times every kernel at the shapes phases 8 and 9
+give it (the splat at channel groups of 5 and 9, the table sample bit for
+bit at 18 to 2048 channels), each variant naming its "phase".
 """
 
 from __future__ import annotations
@@ -73,6 +91,25 @@ B, H, W = 10, 192, 640
 BI = 4  # the evaluation entry points' default batch
 N_TEST = 8  # phase 7's test split: one evaluation batch of 8 (batch_size 10)
 DRIVER_EVAL = "training driver's per-epoch multi-frame evaluation"
+# the other backbones' training configurations: (label, config, batch, the
+# encoder's levels (channels, height, width) at 640x192)
+BACKBONE_STEPS = (
+    ("LiteMono step", "configs/litemono/LiteMono_KITTI_MR.txt", 8,
+     ((48, H // 4, W // 4), (80, H // 8, W // 8), (128, H // 16, W // 16))),
+    ("D-HRNet step", "configs/dhrnet/DHRNet_KITTI_MR.txt", 6,
+     ((64, H // 2, W // 2), (18, H // 4, W // 4), (36, H // 8, W // 8),
+      (72, H // 16, W // 16), (144, H // 32, W // 32))),
+)
+RESNET50_LEVELS = ((64, H // 2, W // 2), (256, H // 4, W // 4), (512, H // 8, W // 8),
+                   (1024, H // 16, W // 16), (2048, H // 32, W // 32))
+# the multi-frame inference of each other backbone (batch BI, f32): (label,
+# backbone, its levels, whether single-frame inference runs too)
+BACKBONE_INFERENCE = (
+    ("LiteMono multi-frame inference", "LiteMono", BACKBONE_STEPS[0][3], True),
+    ("D-HRNet multi-frame inference", "DHRNet", BACKBONE_STEPS[1][3], True),
+    ("ResNet50 multi-frame inference", "ResNet50", RESNET50_LEVELS, False),
+)
+EXTRA_PHASES = [label for label, *_ in BACKBONE_STEPS + BACKBONE_INFERENCE]
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_FLOP_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 
@@ -184,14 +221,19 @@ def kernel_phase(device):
         return img, gx.contiguous(), gy.contiguous()
 
     variants = []
-    for n, c, mode, td, path in (
-        (12 * B, 3, "border", torch.bfloat16, "photometric warp, 6B targets x 2 sources"),
-        (12 * B, 3, "border", torch.float32, None),  # the same shape, f32 taps
-        (6 * B, 3, "border", torch.bfloat16, "photometric warp, 3B affine targets x 2"),
-        (4 * B, 3, "border", torch.bfloat16, "IFRNet synthesis, 2B pairs x 2 frames"),
-        (2 * B, 3, "zeros", torch.float32, "affine rotation of the 2B synthesized frames"),
-        (3 * B, 1, "zeros", torch.float32, "SADC depth restore (forward)"),
-    ):
+    sample_cases = [(B, None)] + [(b, label) for label, _, b, _ in BACKBONE_STEPS]
+    for n, c, mode, td, path, phase in [
+        (12 * b, 3, "border", torch.bfloat16, "photometric warp, 6B targets x 2 sources", ph)
+        for b, ph in sample_cases
+    ] + [(12 * B, 3, "border", torch.float32, None, None)] + [  # the same shape, f32 taps
+        case for b, ph in sample_cases for case in (
+            (6 * b, 3, "border", torch.bfloat16, "photometric warp, 3B affine targets x 2", ph),
+            (4 * b, 3, "border", torch.bfloat16, "IFRNet synthesis, 2B pairs x 2 frames", ph),
+            (2 * b, 3, "zeros", torch.float32, "affine rotation of the 2B synthesized frames",
+             ph),
+            (3 * b, 1, "zeros", torch.float32, "SADC depth restore (forward)", ph),
+        )
+    ]:
         img, gx, gy = sample_inputs(n, c, mode)
         k = WP.bilinear_sample(img, gx, gy, mode, tap_dtype=td)
         p = WP.bilinear_sample_plain(img, gx, gy, mode, tap_dtype=td)
@@ -211,36 +253,45 @@ def kernel_phase(device):
             else "mono_vifi_tpu/ops/pallas/warp.py:59",
             err, 0.0, ms, pms, nbytes, flops, lib,
         ) | {"shape": f"img {tuple(img.shape)} f32, {str(td)[6:]} taps, {mode}"}
-            | ({"path": path, "launch_shape": tuple(img.shape)} if path else {}))
+            | ({"path": path, "launch_shape": tuple(img.shape)} if path else {})
+            | ({"phase": phase} if phase else {}))
     out["bilinear_sample"] = variants[0] | {"variants": variants[1:]}
 
-    # its grid gradient at the 6B photometric shape, bf16 taps as there
-    img, gx, gy = sample_inputs(12 * B, 3, "border")
-    ct = torch.randn(img.shape, generator=gen, device=device)
-    td = torch.bfloat16
-    kx, ky = WP.bilinear_sample_bwd(img, gx, gy, ct, tap_dtype=td)
-    px, py = WP.bilinear_sample_grid_bwd_plain(img, gx, gy, ct, tap_dtype=td)
-    err = max((kx - px).abs().max().item(), (ky - py).abs().max().item())
-    # the channel sums run in another order than autograd's reductions: four
-    # f32 roundings of each of the C terms, each at most max|ct| * max|img|,
-    # scaled by the unnormalize's (W - 1) / 2
-    tol = 4 * 3 * 2.0**-23 * (W - 1) / 2 * ct.abs().max().item() * img.abs().max().item()
-    ms = time_ms(lambda: WP.bilinear_sample_bwd(img, gx, gy, ct, tap_dtype=td))
-    pms = time_ms(lambda: WP.bilinear_sample_grid_bwd_plain(img, gx, gy, ct, tap_dtype=td),
-                  iters=5)
-    grid = torch.stack([gx, gy], -1)
-    lib = time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
-        ct, img, grid, 0, 1, True, [False, True]))
-    out["bilinear_sample_bwd"] = entry(
-        "bilinear_sample_bwd", "mono_vifi_tpu_torch/csrc/warp.cu",
-        "none: the port's own gradient kernel (the JAX side took the grid's "
-        "gradient of mono_vifi_tpu/ops/pallas/warp.py:258 in XLA)",
-        err, tol, ms, pms, 2 * img.numel() * 4 + 4 * gx.numel() * 4,
-        30.0 * gx.numel() + 16.0 * img.numel(), lib,
-    ) | {"shape": f"img, ct {tuple(img.shape)} f32, bf16 taps, border",
-         "path": "photometric warp, 6B targets x 2 sources",
-         "launch_shape": tuple(img.shape)}
-    del img, gx, gy, ct, grid, kx, ky, px, py
+    # its grid gradient at the 6B photometric shape, bf16 taps as there; then
+    # the other backbones' 6B and 3B photometric shapes
+    variants = []
+    stack_path = {12: "photometric warp, 6B targets x 2 sources",
+                  6: "photometric warp, 3B affine targets x 2"}
+    for k, n, phase in [(12, 12 * B, None)] + [(k, k * b, label)
+                                               for label, _, b, _ in BACKBONE_STEPS
+                                               for k in (12, 6)]:
+        img, gx, gy = sample_inputs(n, 3, "border")
+        ct = torch.randn(img.shape, generator=gen, device=device)
+        td = torch.bfloat16
+        kx, ky = WP.bilinear_sample_bwd(img, gx, gy, ct, tap_dtype=td)
+        px, py = WP.bilinear_sample_grid_bwd_plain(img, gx, gy, ct, tap_dtype=td)
+        err = max((kx - px).abs().max().item(), (ky - py).abs().max().item())
+        # the channel sums run in another order than autograd's reductions:
+        # four f32 roundings of each of the C terms, each at most max|ct| *
+        # max|img|, scaled by the unnormalize's (W - 1) / 2
+        tol = 4 * 3 * 2.0**-23 * (W - 1) / 2 * ct.abs().max().item() * img.abs().max().item()
+        ms = time_ms(lambda: WP.bilinear_sample_bwd(img, gx, gy, ct, tap_dtype=td))
+        pms = time_ms(lambda: WP.bilinear_sample_grid_bwd_plain(img, gx, gy, ct, tap_dtype=td),
+                      iters=5)
+        grid = torch.stack([gx, gy], -1)
+        lib = time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
+            ct, img, grid, 0, 1, True, [False, True]))
+        variants.append(entry(
+            "bilinear_sample_bwd", "mono_vifi_tpu_torch/csrc/warp.cu",
+            "none: the port's own gradient kernel (the JAX side took the grid's "
+            "gradient of mono_vifi_tpu/ops/pallas/warp.py:258 in XLA)",
+            err, tol, ms, pms, 2 * img.numel() * 4 + 4 * gx.numel() * 4,
+            30.0 * gx.numel() + 16.0 * img.numel(), lib,
+        ) | {"shape": f"img, ct {tuple(img.shape)} f32, bf16 taps, border",
+             "path": stack_path[k], "launch_shape": tuple(img.shape)}
+            | ({"phase": phase} if phase else {}))
+        del img, gx, gy, ct, grid, kx, ky, px, py
+    out["bilinear_sample_bwd"] = variants[0] | {"variants": variants[1:]}
 
     # kernels 2 and 3: the photometric map over the 6B-target stack, then
     # the 3B-target stack, ragged shapes (odd width: no float2 loads), H = 3,
@@ -249,8 +300,11 @@ def kernel_phase(device):
     x = torch.rand((N, 3, H, W), generator=gen, device=device)
     y = (x + 0.1 * torch.randn((N, 3, H, W), generator=gen, device=device)).clamp(0, 1)
     variants = []
-    for n, h, w, use_ssim in ((N, H, W, True), (3 * B, H, W, True), (8, 187, 629, True),
-                              (8, 3, W, True), (8, H, 3, True), (N, H, W, False)):
+    stacks = [(k * b, label) for label, _, b, _ in BACKBONE_STEPS for k in (6, 3)]
+    for n, h, w, use_ssim, phase in (
+            [(N, H, W, True, None), (3 * B, H, W, True, None), (8, 187, 629, True, None),
+             (8, 3, W, True, None), (8, H, 3, True, None), (N, H, W, False, None)]
+            + [(n, H, W, True, label) for n, label in stacks]):
         xs = x[:n, :, :h, :w].contiguous()
         ys = y[:n, :, :h, :w].contiguous()
         k = PM.ssim_l1_fwd(xs, ys, use_ssim)
@@ -263,13 +317,15 @@ def kernel_phase(device):
             "mono_vifi_tpu/ops/pallas/photometric.py:90", err, 1e-5, ms, pms,
             (2 * xs.numel() + k.numel()) * 4, (55.0 if use_ssim else 3.0) * xs.numel(), None,
         ) | {"shape": f"x, y {tuple(xs.shape)} f32" + ("" if use_ssim else ", no SSIM")}
-            | ({"launch_shape": tuple(xs.shape)} if use_ssim and h == H and w == W else {}))
+            | ({"launch_shape": tuple(xs.shape)} if use_ssim and h == H and w == W else {})
+            | ({"phase": phase} if phase else {}))
     out["ssim_l1_fwd"] = variants[0] | {"variants": variants[1:]}
     # the one-launch backward at the path's shape, then ragged shapes (H, W
     # not multiples of the 16x32 tile; H = 3 and W = 3, where the reflect
     # fold reaches across the whole edge)
     variants = []
-    for n, h, w in ((N, H, W), (8, 187, 629), (8, 3, W), (8, H, 3)):
+    for n, h, w, phase in ([(N, H, W, None), (8, 187, 629, None), (8, 3, W, None),
+                            (8, H, 3, None)] + [(n, H, W, label) for n, label in stacks]):
         xs = x[:n, :, :h, :w].contiguous()
         ys = y[:n, :, :h, :w].contiguous()
         ct = torch.rand((n,) + xs.shape[2:], generator=gen, device=device)
@@ -284,7 +340,8 @@ def kernel_phase(device):
             "mono_vifi_tpu/ops/pallas/photometric.py:113", err, 1e-4 * scale, ms, pms,
             (3 * xs.numel() + ct.numel()) * 4, 200.0 * xs.numel(), None,
         ) | {"shape": f"x, y {tuple(xs.shape)} f32, one launch"}
-            | ({"launch_shape": tuple(xs.shape)} if n == N else {}))
+            | ({"launch_shape": tuple(xs.shape)} if h == H and w == W else {})
+            | ({"phase": phase} if phase else {}))
     out["ssim_l1_bwd"] = variants[0] | {"variants": variants[1:]}
     del x, y, xs, ys
 
@@ -301,7 +358,7 @@ def kernel_phase(device):
     variants = []
 
     def splat_case(ct, gx, gy, f, hw, ids, planes, mode, label, replaces, path=None,
-                   out_dtype=torch.float32):
+                   out_dtype=torch.float32, phase=None):
         """Check the f32 sums (1e-5 of the largest |value|); with a bf16
         out_dtype (the fusion levels' call: the Function's backward asks for
         the image dtype) also the kernel's own rounding to bf16, within one
@@ -340,8 +397,10 @@ def kernel_phase(device):
         variants.append(entry(
             "bilinear_splat", "mono_vifi_tpu_torch/csrc/splat.cu", replaces, err,
             1e-5 * p.abs().max().item(), ms, pms, nbytes, 8.0 * ct.numel(), lib,
-        ) | {"shape": f"ct {tuple(ct.shape)} {str(ct.dtype)[6:]} -> {str(out_dtype)[6:]}, {label}"}
-            | extra | ({"launch_shape": tuple(ct.shape)} if path else {}))
+        ) | {"shape": f"ct {tuple(ct.shape)} {str(ct.dtype)[6:]} -> {str(out_dtype)[6:]}, {label}",
+             "channel_group": SP.splat_channel_group(ct.shape[1], h, w, U_)}
+            | extra | ({"launch_shape": tuple(ct.shape)} if path else {})
+            | ({"phase": phase} if phase else {}))
         del k, p
 
     for level, (C, h, w) in enumerate(((64, H // 2, W // 2), (64, H // 4, W // 4),
@@ -363,13 +422,30 @@ def kernel_phase(device):
                "mono_vifi_tpu/ops/pallas/splat.py:77")
     del ctb
 
-    angle = (torch.rand((3 * B,), generator=gen, device=device) - 0.5) * 10.0
-    gx, gy = rotation_grid(-angle, H, W)
-    f = [t.contiguous() for t in sampling.zeros_factors((H, W), gx, gy)]
-    ct1 = torch.rand((3 * B, 1, H, W), generator=gen, device=device)
-    splat_case(ct1, gx, gy, f, (H, W), None, None, "zeros",
-               "zeros mode (SADC restore, direct path)",
-               "mono_vifi_tpu/ops/pallas/splat.py:166", path=True)
+    # the other backbones' fusion levels (their step's 6b uses of 3b planes,
+    # channel groups of 5 and 9 among them)
+    for phase, _, b, levels in BACKBONE_STEPS:
+        ids_b = torch.tensor([q * b + j for q in TABLE_USES for j in range(b)],
+                             dtype=torch.int32, device=device)
+        for level, (C, h, w) in enumerate(levels):
+            gx, gy = sampling.flow_to_grid(smooth_flow(
+                gen, 6 * b, h, w, 10.0 * w / (W // 2), 4.0 * h / (H // 2), device))
+            f = sampling.border_factors((h, w), gx, gy)
+            ctb = torch.randn((6 * b, C, h, w), generator=gen, device=device).to(torch.bfloat16)
+            splat_case(ctb, gx, gy, f, (h, w), ids_b, 3 * b, "border",
+                       f"{3 * b} unique planes (fusion level {level})",
+                       "mono_vifi_tpu/ops/pallas/splat.py:77", path=True,
+                       out_dtype=torch.bfloat16, phase=phase)
+    del ctb
+
+    for b, phase in [(B, None)] + [(b, label) for label, _, b, _ in BACKBONE_STEPS]:
+        angle = (torch.rand((3 * b,), generator=gen, device=device) - 0.5) * 10.0
+        gx, gy = rotation_grid(-angle, H, W)
+        f = [t.contiguous() for t in sampling.zeros_factors((H, W), gx, gy)]
+        ct1 = torch.rand((3 * b, 1, H, W), generator=gen, device=device)
+        splat_case(ct1, gx, gy, f, (H, W), None, None, "zeros",
+                   "zeros mode (SADC restore, direct path)",
+                   "mono_vifi_tpu/ops/pallas/splat.py:166", path=True, phase=phase)
     out["bilinear_splat"] = variants[0] | {"variants": variants[1:]}
 
     # kernel 5: the fusion table warp's forward at the five levels of each of
@@ -390,6 +466,10 @@ def kernel_phase(device):
               for C, h, w in levels]
     cases += [(N_TEST, (0, 2), torch.bfloat16, C, h, w, "smooth", DRIVER_EVAL)
               for C, h, w in levels]
+    cases += [(b, TABLE_USES, torch.bfloat16, C, h, w, "smooth", label)
+              for label, _, b, bl in BACKBONE_STEPS for C, h, w in bl]
+    cases += [(BI, (0, 2), torch.float32, C, h, w, "smooth", label)
+              for label, _, bl, _ in BACKBONE_INFERENCE for C, h, w in bl]
     cases += [(B, TABLE_USES, torch.bfloat16, 64, H // 2, W // 2, "far", None)]
     for b, uses, dt, C, h, w, kind, path in cases:
         U, N = 3 * b, len(uses) * b
@@ -431,13 +511,14 @@ def kernel_phase(device):
              "shape": f"{N} uses of {U} planes ({C}, {h}, {w}) {str(dt)[6:]}"
                       + ("" if path else ", grid far out of range"),
              "path": path}
-            | ({"launch_shape": tuple(table.shape)} if path else {}))
+            | ({"launch_shape": tuple(table.shape)} if path else {})
+            | ({"phase": path} if path in EXTRA_PHASES else {}))
         del k, p, table, grid
     out["bilinear_sample_table"] = variants[0] | {"variants": variants[1:]}
     return out
 
 
-def make_batch(device):
+def make_batch(device, B=B):
     import torch
 
     rng = np.random.default_rng(0)
@@ -464,21 +545,30 @@ def make_batch(device):
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
-def step_phase(device):
-    """Phases 4 and 5: the full-width step, counted, then kernels vs plain."""
+def step_phase(device, config=None, label="step", card=""):
+    """Phases 4 and 5: the full-width step, counted, then kernels vs plain;
+    ResNet18 as bench.py's, or from `config` through parse_options, as a
+    user runs it (phase 8)."""
     import torch
 
-    from mono_vifi_tpu_torch.config import Options
+    from mono_vifi_tpu_torch.config import Options, parse_options
     from mono_vifi_tpu_torch.ops import cuda
     from mono_vifi_tpu_torch.training import monovifi as M
 
-    cfg = Options(height=H, width=W, batch_size=B, use_affine=True,
-                  compute_dtype="bfloat16", fuse_model_type="shared_encoder",
-                  vfi_train_scale="large")
+    if config is None:
+        cfg = Options(height=H, width=W, batch_size=B, use_affine=True,
+                      compute_dtype="bfloat16", fuse_model_type="shared_encoder",
+                      vfi_train_scale="large")
+    else:
+        cfg = parse_options(["-c", config, "--weights_init", "scratch", "--device", "cuda"])
+        log(f"{label}: {cfg.exp_name}, {cfg.backbone} {cfg.width}x{cfg.height}, batch "
+            f"{cfg.batch_size}, affine {cfg.use_affine}, {cfg.fuse_model_type}, "
+            f"{cfg.compute_dtype}, VFI {cfg.vfi_train_scale}")
+    nb = cfg.batch_size
     state = M.create_train_state(cfg, seed=0, steps_per_epoch=3981, device=device)
     step = M.MonoViFiStep(state.bundle, device=device)
     train_step = step.make_train_step()
-    batch = make_batch(device)
+    batch = make_batch(device, nb)
     gen = torch.Generator(device=device).manual_seed(1)
     for _ in range(2):
         train_step(state, batch, gen)
@@ -493,23 +583,25 @@ def step_phase(device):
     launches = dict(cuda.LAUNCHES)
     shapes = dict(cuda.LAUNCH_SHAPES)
     loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
-    log(f"step: {dt / 5 * 1e3:.1f} ms/step, {B * 5 / dt:.2f} samples/s, loss {loss:.4f}, "
+    log(f"{label}: {dt / 5 * 1e3:.1f} ms/step, {nb * 5 / dt:.2f} samples/s, loss {loss:.4f}, "
         f"grad_norm {gnorm:.4f}, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"launches over 5 steps: {launches}")
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
+    log(f"{label}: launches over 5 steps: {launches}")
     for (name, shape), count in sorted(shapes.items()):
         log(f"  {name} at {shape}: {count}")
     if not (math.isfinite(loss) and math.isfinite(gnorm)):
         raise AssertionError(f"non-finite step: loss {loss}, grad_norm {gnorm}")
     missing = [k for k, v in launches.items() if v <= 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+        raise AssertionError(f"kernels not launched on the {label} path: {missing}")
 
-    # phase 5: same weights, batch and noise, kernels vs every plain version:
-    # the loss terms, and the gradient norm of the pose net's parameters,
-    # which reaches the loss through the photometric warps' grid gradient
+    # phase 5: same weights, batch, noise and stochastic-depth masks,
+    # kernels vs every plain version: the loss terms, and the gradient norm
+    # of the pose net's parameters, which reaches the loss through the
+    # photometric warps' grid gradient
     noise = {k: torch.randn(s, generator=gen, device=device)
-             for k, s in step.noise_shapes(B, H, W).items()}
+             for k, s in step.noise_shapes(nb, H, W).items()}
+    noise.update(step.draw_drop_masks(nb, gen))
     pose_params = [q for role in ("pose_encoder", "pose")
                    for q in state.bundle.role(role).parameters()]
 
@@ -528,15 +620,17 @@ def step_phase(device):
     pairs = zip(terms + ("pose-net gradient norm",), got, ref)
     for term, a, b in pairs:
         rel = abs(a - b) / max(abs(b), 1e-12)
-        log(f"whole step {term}: kernels {a:.6f} plain {b:.6f} rel {rel:.2e} (tol 1e-3)")
+        log(f"whole {label} {term}: kernels {a:.6f} plain {b:.6f} rel {rel:.2e} (tol 1e-3)")
         if not (math.isfinite(a) and rel <= 1e-3):
-            raise AssertionError(f"whole-step {term} differs: {a} vs {b}")
+            raise AssertionError(f"whole {label} {term} differs: {a} vs {b}")
     return launches, shapes
 
 
-def inference_phase(device):
+def inference_phase(device, backbone="ResNet18", single=True, card=""):
     """Phase 6: single- and multi-frame inference through the entry
-    modules' predict functions, timed, counted and checked."""
+    modules' predict functions, timed, counted and checked; the KITTI
+    protocol on ResNet18's predictions. Phase 9 runs it for the other
+    backbones (ResNet50: multi-frame only)."""
     import torch
 
     from mono_vifi_tpu_torch import evaluation
@@ -547,7 +641,7 @@ def inference_phase(device):
     from mono_vifi_tpu_torch.training.factory import build_bundle
     from mono_vifi_tpu_torch.training.monovifi import multi_frame_disp
 
-    cfg = Options(height=H, width=W, compute_dtype="float32",
+    cfg = Options(backbone=backbone, height=H, width=W, compute_dtype="float32",
                   fuse_model_type="shared_encoder", vfi_test_scale="small")
     bundle = build_bundle(cfg, seed=0, device=device, for_training=False)
     rng = np.random.default_rng(2)
@@ -568,17 +662,19 @@ def inference_phase(device):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         launches, shapes = dict(cuda.LAUNCHES), dict(cuda.LAUNCH_SHAPES)
-        log(f"inference {label}: {dt / 10 * 1e3:.2f} ms/batch of {BI}, "
+        log(f"inference {backbone} {label}: {dt / 10 * 1e3:.2f} ms/batch of {BI}, "
             f"{n_frames / dt:.2f} frames/s, peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches {launches}")
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB {card}; launches {launches}")
         if pred.shape != (n_frames, H, W) or not np.isfinite(pred).all():
             raise AssertionError(f"{label}: predictions {pred.shape} not finite")
         return pred, launches, shapes
 
-    sf_args = ED.eval_args(["--post_process"])
-    pred_sf, _, _ = timed("single-frame (flip post-processing)",
-                       lambda bs: ED.predict_disps(sf_args, bundle, (b["color_0"] for b in bs)))
-    mf_args = EDM.eval_args([])
+    if single:
+        sf_args = ED.eval_args(["--post_process", "--backbone", backbone])
+        pred_sf, _, _ = timed(
+            "single-frame (flip post-processing)",
+            lambda bs: ED.predict_disps(sf_args, bundle, (b["color_0"] for b in bs)))
+    mf_args = EDM.eval_args(["--backbone", backbone])
     pred, launches, shapes = timed("multi-frame", lambda bs: EDM.predict_disps_mf(mf_args, bundle, bs))
     if launches["bilinear_sample_table"] <= 0:
         raise AssertionError("bilinear_sample_table not launched on the multi-frame path")
@@ -588,9 +684,12 @@ def inference_phase(device):
     with cuda.plain_versions():
         dp = multi_frame_disp(bundle, *imgs)
     err = (dk - dp).abs().max().item()
-    log(f"multi-frame disparity, kernels vs plain: max abs error {err:.3e} (tol 1e-5)")
+    log(f"{backbone} multi-frame disparity, kernels vs plain: max abs error {err:.3e} "
+        "(tol 1e-5)")
     if not err <= 1e-5:
-        raise AssertionError(f"multi-frame disparities differ: {err}")
+        raise AssertionError(f"{backbone} multi-frame disparities differ: {err}")
+    if backbone != "ResNet18":
+        return launches, shapes
 
     gts = [rng.uniform(1.0, 80.0, (375, 1242)).astype(np.float32) for _ in range(n_frames)]
     for g in gts:
@@ -788,18 +887,37 @@ def main() -> int:
     t0 = time.perf_counter()
     build.load()
     log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {build.last_build_seconds:.1f} s)")
+    t_start = t0
 
     kernels = kernel_phase(device)
-    launches, shapes = step_phase(device)
-    inference, inference_shapes = inference_phase(device)
+    launches, shapes = step_phase(device, card=card)
+    inference, inference_shapes = inference_phase(device, card=card)
     driver = driver_phase(card)
+    # phases 8 and 9: the other backbones' steps and inference, each with its
+    # own counts (set to 0 just before the path runs, read just after)
+    extra = {}
+    for label, config, _, _ in BACKBONE_STEPS:
+        t0 = time.perf_counter()
+        extra[label] = step_phase(device, config, label, card)
+        log(f"{label}: phase took {time.perf_counter() - t0:.1f} s")
+    for label, backbone, _, single in BACKBONE_INFERENCE:
+        extra[label] = inference_phase(device, backbone, single, card)
     # each variant's counts are those of the path it belongs to: the training
     # step's (phase 4, and the driver's 12 steps as driver_launches), the
-    # multi-frame inference's (phase 6) or the driver's evaluation (phase 7);
-    # a variant on no path carries its kernel's phase-4 count
+    # multi-frame inference's (phase 6), the driver's evaluation (phase 7) or
+    # another backbone's step or inference (phases 8-9, named by its
+    # "phase"); a variant on no path carries its kernel's phase-4 count
     for name, e in kernels.items():
         for v in [e] + e.get("variants", []):
             path = v.get("path")
+            if "phase" in v:
+                counts, by_shape = extra[v["phase"]]
+                v["launches"] = counts[name]
+                v["launches_at_shape"] = by_shape.get((name, v.pop("launch_shape")), 0)
+                if v["launches_at_shape"] <= 0:
+                    raise AssertionError(f"{name} not launched at {v['shape']} on the "
+                                         f"{v['phase']} path")
+                continue
             if path == "multi-frame inference":
                 counts, by_shape = inference, inference_shapes
             elif path == DRIVER_EVAL:
@@ -817,6 +935,7 @@ def main() -> int:
             else:
                 v["driver_launches"] = driver["steps"][name]
                 v["driver_launches_at_shape"] = driver["step_shapes"].get((name, shape), 0)
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the build to the end")
     log(json.dumps({"kernels": list(kernels.values())}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -53,6 +53,57 @@ class ConvBlock(nn.Module):
         return F.elu(self.conv(x))
 
 
+class Conv1x1(nn.Module):
+    """Holds a biased 1x1 conv under the reference key `conv` (layers.py
+    Conv1x1)."""
+
+    def __init__(self, cin, cout, dtype=torch.float32):
+        super().__init__()
+        self.conv = Conv(cin, cout, 1, dtype=dtype)
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class ConvBlock1x1(nn.Module):
+    """1x1 conv + ELU (reference layers.py:141-165; counterpart of
+    mono_vifi_tpu/models/common.py ConvBlock1x1)."""
+
+    def __init__(self, cin, cout, dtype=torch.float32):
+        super().__init__()
+        self.conv = Conv1x1(cin, cout, dtype)
+
+    def forward(self, x):
+        return F.elu(self.conv(x))
+
+
+class Linear(nn.Linear):
+    """nn.Linear computing in `dtype` with f32 parameters (flax Dense)."""
+
+    def __init__(self, cin, cout, bias=True, dtype=torch.float32):
+        super().__init__(cin, cout, bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        cd = self.compute_dtype
+        b = None if self.bias is None else self.bias.to(cd)
+        return F.linear(x.to(cd), self.weight.to(cd), b)
+
+
+class LayerNorm(nn.LayerNorm):
+    """LayerNorm over the last axis, normalized in f32 and returned in
+    `dtype`, as flax's LayerNorm computes its statistics and the affine map
+    in f32 and casts the result."""
+
+    def __init__(self, channels: int, eps: float = 1e-6, dtype=torch.float32):
+        super().__init__(channels, eps=eps)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias,
+                            self.eps).to(self.compute_dtype)
+
+
 class PReLU(nn.Module):
     """Per-channel PReLU, alpha cast to the input dtype."""
 

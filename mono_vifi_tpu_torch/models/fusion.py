@@ -16,7 +16,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from mono_vifi_tpu_torch.models.common import Conv
+from mono_vifi_tpu_torch.models.common import Conv1x1
 from mono_vifi_tpu_torch.ops.cuda.splat import grid_sample_frozen_grid
 from mono_vifi_tpu_torch.ops.image import resize_bilinear
 from mono_vifi_tpu_torch.ops.sampling import flow_to_grid, warp_planar
@@ -38,15 +38,6 @@ def embed_flow(x, num_freqs: int = 10):
     return torch.cat([x, out], dim=1)
 
 
-class _Conv1x1(nn.Module):
-    """Holds the 1x1 conv under the reference key `conv` (layers.py
-    Conv1x1); SplitFuse1x1 applies its kernel in slices."""
-
-    def __init__(self, cin, cout, dtype):
-        super().__init__()
-        self.conv = Conv(cin, cout, 1, dtype=dtype)
-
-
 class SplitFuse1x1(nn.Module):
     """elu(conv1x1(cat[feat0, emb0, mask*[fn1|en1] + (1-mask)*[fp1|ep1]]))
     as a sum of convs with the sliced kernel, in the JAX package's order
@@ -57,7 +48,7 @@ class SplitFuse1x1(nn.Module):
         super().__init__()
         self.cf, self.ce = cf, ce
         self.dtype = dtype
-        self.conv = _Conv1x1(2 * (cf + ce), cf, dtype)
+        self.conv = Conv1x1(2 * (cf + ce), cf, dtype)  # its kernel, in slices
 
     def forward(self, feat0, emb0, fn1, en1, fp1, ep1, mask):
         cf, ce, cd = self.cf, self.ce, self.dtype
@@ -79,12 +70,16 @@ class SplitFuse1x1(nn.Module):
 class FusionModule(nn.Module):
     """Fuse [feats_n1, feats_0, feats_p1] into frame-0 features.
 
-    `fusion_conv` is built from level L-1 down to 0, the reference's order."""
+    `fusion_conv` is built from level L-1 down to 0, the reference's order.
+    `backbone` "LiteMono" halves the flow once more at level 0, whose
+    pyramid starts at 1/4 resolution (reference fusion_module.py:71-74)."""
 
     def __init__(self, num_ch_enc: Sequence[int] = (64, 64, 128, 256, 512),
-                 embed_multires: int = 10, dtype=torch.float32):
+                 backbone: str = "ResNet18", embed_multires: int = 10,
+                 dtype=torch.float32):
         super().__init__()
         self.num_ch_enc = tuple(num_ch_enc)
+        self.backbone = backbone
         self.embed_multires = embed_multires
         self.dtype = dtype
         ce = 2 + 4 * embed_multires
@@ -98,9 +93,11 @@ class FusionModule(nn.Module):
         (bf16 cannot hold the high octaves' phases) and cast to the module
         dtype."""
         oups, x = [], flow
-        for _ in self.num_ch_enc:
+        for i in range(len(self.num_ch_enc)):
             h, w = x.shape[2] // 2, x.shape[3] // 2
             x = resize_bilinear(x, (h, w)) * 0.5
+            if i == 0 and self.backbone == "LiteMono":
+                x = resize_bilinear(x, (h // 2, w // 2)) * 0.5
             oups.append(embed_flow(x, self.embed_multires).to(self.dtype))
         return oups
 

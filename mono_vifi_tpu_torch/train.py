@@ -18,9 +18,10 @@ the TF32 switches as its caller set them. The command line entry sets
 cudnn.benchmark, as the reference does, and leaves TF32 at PyTorch's
 defaults (the bf16 configurations do not compute in f32).
 
-The automask tie-break noise of each step is drawn from a generator on
-the device seeded from (seed, step), so that a resumed run draws what an
-uninterrupted one would (the JAX driver folds the step into its key).
+The automask tie-break noise of each step, and LiteMono's stochastic-depth
+masks, are drawn from a generator on the device seeded from (seed, step),
+so that a resumed run draws what an uninterrupted one would (the JAX driver
+folds the step into its key).
 """
 
 from __future__ import annotations

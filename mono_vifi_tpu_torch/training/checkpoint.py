@@ -183,6 +183,7 @@ def load_jax_weights(path: str, bundle) -> list[str]:
     payload = load_weights_pkl(path)
     params = {r: v for r, v in payload["params"].items() if r in ROLES}
     sds = convert.bundle_state_dicts(
-        params, payload.get("batch_stats"), scales=tuple(range(bundle.cfg.num_scales))
+        params, payload.get("batch_stats"), scales=tuple(range(bundle.cfg.num_scales)),
+        backbone=bundle.cfg.backbone,
     )
     return load_roles(bundle, sds)

@@ -17,7 +17,7 @@ import torch
 import torch.nn as nn
 
 from mono_vifi_tpu_torch.config import Options
-from mono_vifi_tpu_torch.models import fusion, ifrnet, monodepth2, posenet
+from mono_vifi_tpu_torch.models import dhrnet, fusion, ifrnet, litemono, monodepth2, posenet
 
 
 def resolve_device(device=None) -> torch.device:
@@ -35,6 +35,22 @@ def compute_dtype(cfg: Options) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
 
+def build_depth_net(cfg: Options, dtype) -> tuple[nn.Module, nn.Module]:
+    """The depth encoder and decoder of `cfg.backbone` (JAX factory.py:33-65).
+    The pose encoder is ResNet(cfg.num_layers) whatever the backbone."""
+    scales = tuple(range(cfg.num_scales))
+    if cfg.backbone in ("ResNet18", "ResNet50"):
+        encoder = monodepth2.DepthEncoder(18 if cfg.backbone == "ResNet18" else 50, dtype)
+        return encoder, monodepth2.DepthDecoder(encoder.num_ch_enc, scales, dtype)
+    if cfg.backbone == "LiteMono":
+        encoder = litemono.DepthEncoder(height=cfg.height, width=cfg.width, dtype=dtype)
+        return encoder, litemono.DepthDecoder(encoder.num_ch_enc, scales, dtype)
+    if cfg.backbone == "DHRNet":
+        encoder = dhrnet.DepthEncoder(dtype=dtype)
+        return encoder, dhrnet.DepthDecoder(encoder.num_ch_enc, scales, dtype)
+    raise ValueError(f"unknown backbone {cfg.backbone}")
+
+
 class ModelBundle(nn.Module):
     """All modules of one training run, or of one evaluation. Trainable
     roles are submodules; the frozen VFI networks have requires_grad off.
@@ -45,22 +61,17 @@ class ModelBundle(nn.Module):
 
     def __init__(self, cfg: Options, for_training: bool = True):
         super().__init__()
-        if cfg.backbone != "ResNet18":
-            raise ValueError(f"backbone {cfg.backbone} is not ported yet")
         if cfg.fuse_model_type not in ("shared_all", "shared_encoder", "separate_all"):
             raise ValueError(f"unknown fuse_model_type {cfg.fuse_model_type}")
         self.cfg = cfg
         self.dtype = dt = compute_dtype(cfg)
-        self.encoder = monodepth2.DepthEncoder(cfg.num_layers, dt)
+        self.encoder, self.depth = build_depth_net(cfg, dt)
         self.num_ch_enc = self.encoder.num_ch_enc
-        self.depth = monodepth2.DepthDecoder(
-            self.num_ch_enc, tuple(range(cfg.num_scales)), dt
-        )
         if cfg.fuse_model_type != "shared_all":
             self.depth_mf = copy.deepcopy(self.depth)
         if cfg.fuse_model_type == "separate_all":
             self.encoder_mf = copy.deepcopy(self.encoder)
-        self.fusion_module = fusion.FusionModule(self.num_ch_enc, dtype=dt)
+        self.fusion_module = fusion.FusionModule(self.num_ch_enc, cfg.backbone, dtype=dt)
         if for_training and cfg.use_pose_net:
             self.pose_encoder = posenet.PoseEncoder(cfg.num_layers, dt)
             self.pose = posenet.PoseDecoder(self.pose_encoder.num_ch_enc[-1], dtype=dt)

@@ -85,7 +85,30 @@ class MonoViFiStep:
             shapes["n2"] = (n, 3 * B, H, W)
         return shapes
 
+    def encoder_batches(self, B: int) -> dict:
+        """{encoder role: images in its one training pass}."""
+        n_sf = 6 if self.cfg.use_affine else 3
+        if self.cfg.fuse_model_type == "separate_all":
+            return {"encoder": n_sf * B, "encoder_mf": 5 * B}
+        return {"encoder": (n_sf + 2) * B}
+
+    def draw_drop_masks(self, B: int, generator=None) -> dict:
+        """The stochastic-depth keep masks of one training step,
+        {"drop_path_<role>": (blocks, images) bool}, drawn from `generator`
+        for each encoder that has stochastic depth (LiteMono)."""
+        out = {}
+        for role, n in self.encoder_batches(B).items():
+            enc = getattr(self.b, role)
+            if getattr(enc, "num_drop_paths", 0):
+                out[f"drop_path_{role}"] = enc.draw_drop_masks(n, generator, self.device)
+        return out
+
     # ------------------------------------------------------------- helpers
+    def _encode(self, role, x, noise):
+        masks = noise.get(f"drop_path_{role}")
+        enc = getattr(self.b, role)
+        return enc(x) if masks is None else enc(x, masks)
+
     def _photometric(self, disp, tgt, src_n1, src_p1, T_n1, T_p1, K, invK,
                      noise, mask_rec=None, smooth_dyn_mask=None,
                      ident_reuse=None):
@@ -151,11 +174,12 @@ class MonoViFiStep:
 
     # ------------------------------------------------------------ the loss
     def loss_fn(self, batch, generator=None, noise=None, train=True):
-        """-> (loss, metrics). `noise` optionally supplies the automask
-        tie-break draws ({"n1", "n2"}, shapes from `noise_shapes`); otherwise
-        they are drawn from `generator` (an explicit torch.Generator on the
-        step's device). In train mode BatchNorm running statistics update in
-        place."""
+        """-> (loss, metrics). `noise` optionally supplies the step's random
+        draws: the automask tie-break noise ({"n1", "n2"}, shapes from
+        `noise_shapes`) and, in train mode, the encoders' stochastic-depth
+        masks (`draw_drop_masks`); otherwise they are drawn from `generator`
+        (an explicit torch.Generator on the step's device), the noise first.
+        In train mode BatchNorm running statistics update in place."""
         cfg, b = self.cfg, self.b
         batch = prepare_batch(batch, self.device)
         B, _, H, W = batch["color_0"].shape
@@ -164,6 +188,8 @@ class MonoViFiStep:
                 k: torch.randn(s, generator=generator, device=self.device)
                 for k, s in self.noise_shapes(B, H, W).items()
             }
+            if train:
+                noise.update(self.draw_drop_masks(B, generator))
         b.train(train)
         img_n1, img_0, img_p1 = batch["color_n1"], batch["color_0"], batch["color_p1"]
         aug_n1, aug_0, aug_p1 = (
@@ -218,12 +244,13 @@ class MonoViFiStep:
             sf_inputs += [batch["color_affine_aug_0"], img_nt_aff, img_pt_aff]
         n_sf = len(sf_inputs)
         if cfg.fuse_model_type == "separate_all":
-            feats_sf = b.encoder(torch.cat(sf_inputs, 0))
-            mf_stack = b.encoder_mf(torch.cat([aug_0, img_nt, img_pt, aug_n1, aug_p1], 0))
+            feats_sf = self._encode("encoder", torch.cat(sf_inputs, 0), noise)
+            mf_stack = self._encode(
+                "encoder_mf", torch.cat([aug_0, img_nt, img_pt, aug_n1, aug_p1], 0), noise)
             fn1_mf = [f[3 * B:4 * B] for f in mf_stack]
             fp1_mf = [f[4 * B:] for f in mf_stack]
         else:
-            mf_stack = b.encoder(torch.cat(sf_inputs + [aug_n1, aug_p1], 0))
+            mf_stack = self._encode("encoder", torch.cat(sf_inputs + [aug_n1, aug_p1], 0), noise)
             feats_sf = [f[:n_sf * B] for f in mf_stack]
             fn1_mf = [f[n_sf * B:(n_sf + 1) * B] for f in mf_stack]
             fp1_mf = [f[(n_sf + 1) * B:] for f in mf_stack]

@@ -1,12 +1,14 @@
 """Where the port's full-width paths spend the card's time.
 
-`--path train` (the default) builds the training step chip_smoke.py drives
-(ResNet18, 640x192, batch 10, frozen IFRNet-L, affine, shared_encoder, bf16,
-random weights from a seed); `--path single` and `--path multi` build the
-inference paths chip_smoke.py drives (the same ResNet18 at 640x192 in f32
-with TF32 off, frozen IFRNet-S, batch 4 of uint8 frames from a numpy seed,
-through the evaluation entry modules' `predict_disps` with flip
-post-processing and `predict_disps_mf`). Each runs 2 warm-up calls, times 5
+`--path train` (the default) builds the training step of `--config` (default
+configs/resnet18/ResNet18_KITTI_MR.txt, the step chip_smoke.py drives:
+ResNet18, 640x192, batch 10, frozen IFRNet-L, affine, shared_encoder, bf16;
+the LiteMono and D-HRNet configs give chip_smoke.py's phase 8 steps), parsed
+as a user runs it, with random weights from a seed; `--path single` and
+`--path multi` build the inference paths chip_smoke.py drives (the config's
+backbone at 640x192 in f32 with TF32 off, frozen IFRNet-S, batch 4 of uint8
+frames from a numpy seed, through the evaluation entry modules'
+`predict_disps` with flip post-processing and `predict_disps_mf`). Each runs 2 warm-up calls, times 5
 with the host clock, then traces 3 with torch.profiler and prints per call:
 the device's busy share (kernel time over wall time), the kernel time by
 category, the port's kernels, and the 20 kernels that take the most time.
@@ -17,7 +19,7 @@ the `__global__` functions in the checkout's `mono_vifi_tpu_torch/csrc`, so
 the script reads any version of the port. Run from the repository root on
 a machine with a CUDA device:
 
-    python3 profile_torch_step.py [--path train|single|multi]
+    python3 profile_torch_step.py [--path train|single|multi] [--config FILE]
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from chip_smoke import B, BI, H, W, make_batch
+from chip_smoke import BI, H, W, make_batch
 
 # a kernel as the profiler names it: `[void ](anonymous namespace)::<name>...`
 # (the return type shows on templates only)
@@ -66,22 +68,18 @@ def category(name: str, port_kernels: set[str]) -> str:
     return "other"
 
 
-def train_call(dev):
+def train_call(dev, cfg):
     """-> (one training step, samples per call)."""
-    from mono_vifi_tpu_torch.config import Options
     from mono_vifi_tpu_torch.training import monovifi as M
 
-    cfg = Options(height=H, width=W, batch_size=B, use_affine=True,
-                  compute_dtype="bfloat16", fuse_model_type="shared_encoder",
-                  vfi_train_scale="large")
     state = M.create_train_state(cfg, seed=0, steps_per_epoch=3981, device=dev)
     train_step = M.MonoViFiStep(state.bundle, device=dev).make_train_step()
-    batch = make_batch(dev)
+    batch = make_batch(dev, cfg.batch_size)
     gen = torch.Generator(device=dev).manual_seed(1)
-    return lambda: train_step(state, batch, gen), B
+    return lambda: train_step(state, batch, gen), cfg.batch_size
 
 
-def inference_call(dev, multi: bool):
+def inference_call(dev, backbone: str, multi: bool):
     """-> (one inference batch through the entry module, frames per call)."""
     from mono_vifi_tpu_torch import evaluate_depth as ED
     from mono_vifi_tpu_torch import evaluate_depth_mf as EDM
@@ -90,7 +88,7 @@ def inference_call(dev, multi: bool):
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = Options(height=H, width=W, compute_dtype="float32",
+    cfg = Options(backbone=backbone, height=H, width=W, compute_dtype="float32",
                   fuse_model_type="shared_encoder", vfi_test_scale="small")
     bundle = build_bundle(cfg, seed=0, device=dev, for_training=False)
     rng = np.random.default_rng(2)
@@ -106,13 +104,24 @@ def inference_call(dev, multi: bool):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=("train", "single", "multi"), default="train")
-    path = ap.parse_args().path
+    ap.add_argument("--config", default="configs/resnet18/ResNet18_KITTI_MR.txt")
+    args = ap.parse_args()
+    path = args.path
     dev = torch.device("cuda")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True,
     ).stdout.strip().splitlines()[0])
-    call, n = train_call(dev) if path == "train" else inference_call(dev, path == "multi")
+    from mono_vifi_tpu_torch.config import parse_options
+
+    cfg = parse_options(["-c", args.config, "--weights_init", "scratch", "--device", "cuda"])
+    if (cfg.height, cfg.width) != (H, W):
+        raise ValueError(f"{args.config}: the profile runs at {W}x{H}")
+    print(f"{args.config}: {cfg.backbone}, batch {cfg.batch_size}")
+    if path == "train":
+        call, n = train_call(dev, cfg)
+    else:
+        call, n = inference_call(dev, cfg.backbone, path == "multi")
     unit = "step" if path == "train" else "batch"
     for _ in range(2):
         call()

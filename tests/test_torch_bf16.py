@@ -140,3 +140,38 @@ def test_bf16_step_loss_terms_are_as_close_to_f32_as_jax(weights):
         d_jax = abs(ref["bfloat16"][t] - ref["float32"][t])
         assert d_port <= 0.05 * f32 and d_jax <= 0.05 * f32, (t, d_port, d_jax, f32)
         assert d_port <= max(RATIO * d_jax, FLOOR * f32), (t, d_port, d_jax)
+
+
+@pytest.mark.parametrize("train", [True, False], ids=["batch-stats", "running-stats"])
+def test_bf16_litemono_encoder_is_as_close_to_f32_as_jax(train):
+    """LiteMono's encoder, where LayerNorm, the cross-covariance attention's
+    normalized q and k and its d x d softmax meet bf16 (stochastic depth at
+    rate 0; layer scales and BatchNorm statistics drawn so that the
+    attention and the MLPs count). Same bounds as the ResNet18 encoder."""
+    from mono_vifi_tpu.models import litemono as JL
+    from mono_vifi_tpu_torch.models import litemono as TL
+    from tests.test_torch_backbones import perturb
+
+    src = perturb(TL.DepthEncoder(height=H, width=W, drop_path_rate=0.0), 14)
+    v = jconvert.convert_litemono_encoder({k: t.numpy() for k, t in src.state_dict().items()})
+    x = np.random.default_rng(5).random((2 * B, H, W, 3)).astype(np.float32)
+    port, ref = {}, {}
+    for dt, tdt, jdt in (("float32", torch.float32, None),
+                         ("bfloat16", torch.bfloat16, jnp.bfloat16)):
+        enc = TL.DepthEncoder(height=H, width=W, drop_path_rate=0.0, dtype=tdt)
+        enc.load_state_dict(src.state_dict())
+        with torch.no_grad():
+            port[dt] = [f.float().permute(0, 2, 3, 1).numpy()
+                        for f in enc.train(train)(torch.from_numpy(x).permute(0, 3, 1, 2))]
+        fn = jax.jit(lambda v, x, e=JL.DepthEncoder(height=H, width=W, drop_path_rate=0.0,
+                                                    dtype=jdt): e.apply(
+            v, x, train=train, mutable=["batch_stats"] if train else False))
+        out = fn(v, jnp.asarray(x))
+        ref[dt] = [np.asarray(f, np.float32) for f in (out[0] if train else out)]
+    for i in range(3):
+        d_port = _dist(port["bfloat16"][i], port["float32"][i])
+        d_jax = _dist(ref["bfloat16"][i], ref["float32"][i])
+        scale = float(np.abs(port["float32"][i]).max())
+        assert d_port <= 0.1 * scale and d_jax <= 0.1 * scale, (i, d_port, d_jax, scale)
+        assert d_port <= max(RATIO * d_jax, FLOOR * scale), (i, d_port, d_jax)
+        assert d_port > 0  # the bf16 path really rounds

@@ -251,10 +251,11 @@ def test_apply_pretrained_without_the_file_keeps_random_init(tmp_path):
     scratch = build_bundle(Options(**kw), 3, "cpu")
     for k, v in scratch.encoder.state_dict().items():
         assert torch.equal(port.bundle.encoder.state_dict()[k], v), k
-    with pytest.raises(NotImplementedError, match="item 15"):
-        from mono_vifi_tpu_torch.training.pretrained import apply_pretrained
-
-        apply_pretrained(Options(backbone="LiteMono"), port.bundle)
+    lite = dict(kw, backbone="LiteMono")
+    port = TM.create_train_state(Options(**lite, weights_init="pretrained"), 3, 10, "cpu")
+    scratch = build_bundle(Options(**lite), 3, "cpu")
+    for k, v in scratch.encoder.state_dict().items():
+        assert torch.equal(port.bundle.encoder.state_dict()[k], v), k
 
 
 def test_training_converges_on_synthetic_scene():
