@@ -69,12 +69,29 @@ Phases, in order; any failure exits non-zero before the last line:
      single-frame one of the first two) as phase 6: ms/batch, frames/s,
      the table sample's launches (> 0, and at each shape phase 3 checked
      for the path), disparities kernels vs plain within 1e-5;
- 10. the whole run's time, one JSON line describing every kernel (each
+ 10. VFI training (configs/vfi/IFRNet_L_KITTI.txt through `parse_options`:
+     IFRNet-L, batch 16, the 160x576 crop, bf16; random init from the
+     config's seed) on phase 7's synthetic tree (its 60 lines twice): 2
+     warm-up and 5 timed steps on the loader's first batch (ms/step,
+     samples/s, peak memory; `bilinear_sample` and `bilinear_sample_bwd`
+     launched once a step at (32, 3, 160, 576)); loss and gradient norm
+     kernels vs plain (rel 1e-3) on the same weights and batch; the real
+     `VFITrainer`'s epoch of 7 steps with a checkpoint after step 5, a
+     trainer resumed from it bit for bit (weights and optimizer state) that
+     takes steps 6-7, the epoch-end checkpoint, and the depth `Trainer`
+     taking it as its frozen IFRNet-L weight for weight;
+ 11. `test_simple` and `test_video` (the entry modules' `main`, random
+     weights) on four PNG frames of that tree at 640x192: the files they
+     write, test_video's table-sample launches at batch 1 (at each shape
+     phase 3 checked for it), its multi-frame disparities with the kernels
+     against every plain version within 1e-5;
+ 12. the whole run's time, one JSON line describing every kernel (each
      variant's launches those of its own path), then the result line.
 
-Phase 3 also checks and times every kernel at the shapes phases 8 and 9
-give it (the splat at channel groups of 5 and 9, the table sample bit for
-bit at 18 to 2048 channels), each variant naming its "phase".
+Phase 3 also checks and times every kernel at the shapes phases 8-11 give
+it (the splat at channel groups of 5 and 9, the table sample bit for bit at
+18 to 2048 channels and at batch 1, the sample and its grid gradient at the
+VFI crops), each variant naming its "phase".
 """
 
 from __future__ import annotations
@@ -83,6 +100,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -109,7 +127,15 @@ BACKBONE_INFERENCE = (
     ("D-HRNet multi-frame inference", "DHRNet", BACKBONE_STEPS[1][3], True),
     ("ResNet50 multi-frame inference", "ResNet50", RESNET50_LEVELS, False),
 )
-EXTRA_PHASES = [label for label, *_ in BACKBONE_STEPS + BACKBONE_INFERENCE]
+# phase 10: VFI training from configs/vfi/IFRNet_L_KITTI.txt (IFRNet-L, batch 16,
+# crop 160x576; both frames' image warps in one launch); phase 11: test_video
+# at batch 1 (multi-frame: 2 uses of 3 planes per fusion level)
+VFI_STEP = "VFI step"
+VFI_B, VFI_CROP, VFI_CROP_CS = 16, (160, 576), (176, 480)
+VFI_SAVE = 4  # phase 10's save_frequency: a mid-epoch checkpoint after step 5
+TEST_VIDEO = "test_video"
+EXTRA_PHASES = [label for label, *_ in BACKBONE_STEPS + BACKBONE_INFERENCE] + [
+    VFI_STEP, TEST_VIDEO]
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_FLOP_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 
@@ -211,30 +237,38 @@ def kernel_phase(device):
 
     # kernel 1: the fused sample at the five shapes of the training step
     # (one launch each per step), and its grid gradient
-    def sample_inputs(n, c, mode):
-        img = torch.rand((n, c, H, W), generator=gen, device=device)
+    def sample_inputs(n, c, mode, h=H, w=W):
+        img = torch.rand((n, c, h, w), generator=gen, device=device)
         if mode == "zeros":
             angle = (torch.rand((n,), generator=gen, device=device) - 0.5) * 10.0
-            gx, gy = rotation_grid(angle, H, W)
+            gx, gy = rotation_grid(angle, h, w)
         else:
-            gx, gy = sampling.flow_to_grid(smooth_flow(gen, n, H, W, 40.0, 10.0, device))
+            gx, gy = sampling.flow_to_grid(smooth_flow(gen, n, h, w, 40.0, 10.0, device))
         return img, gx.contiguous(), gy.contiguous()
 
     variants = []
     sample_cases = [(B, None)] + [(b, label) for label, _, b, _ in BACKBONE_STEPS]
-    for n, c, mode, td, path, phase in [
-        (12 * b, 3, "border", torch.bfloat16, "photometric warp, 6B targets x 2 sources", ph)
-        for b, ph in sample_cases
-    ] + [(12 * B, 3, "border", torch.float32, None, None)] + [  # the same shape, f32 taps
+    # the VFI step's image warps, both frames of the batch in one launch: at
+    # the KITTI crop (phase 10) and at the Cityscapes crop
+    # (configs/vfi/IFRNet_L_CS.txt; no phase runs it)
+    vfi_cases = [(2 * VFI_B, VFI_CROP, "VFI training image warps, 2B frames", VFI_STEP),
+                 (2 * VFI_B, VFI_CROP_CS, None, None)]
+    for n, c, mode, td, path, phase, hw in [
+        (12 * b, 3, "border", torch.bfloat16, "photometric warp, 6B targets x 2 sources", ph,
+         (H, W)) for b, ph in sample_cases
+    ] + [(12 * B, 3, "border", torch.float32, None, None, (H, W))] + [  # f32 taps
         case for b, ph in sample_cases for case in (
-            (6 * b, 3, "border", torch.bfloat16, "photometric warp, 3B affine targets x 2", ph),
-            (4 * b, 3, "border", torch.bfloat16, "IFRNet synthesis, 2B pairs x 2 frames", ph),
+            (6 * b, 3, "border", torch.bfloat16, "photometric warp, 3B affine targets x 2", ph,
+             (H, W)),
+            (4 * b, 3, "border", torch.bfloat16, "IFRNet synthesis, 2B pairs x 2 frames", ph,
+             (H, W)),
             (2 * b, 3, "zeros", torch.float32, "affine rotation of the 2B synthesized frames",
-             ph),
-            (3 * b, 1, "zeros", torch.float32, "SADC depth restore (forward)", ph),
+             ph, (H, W)),
+            (3 * b, 1, "zeros", torch.float32, "SADC depth restore (forward)", ph, (H, W)),
         )
-    ]:
-        img, gx, gy = sample_inputs(n, c, mode)
+    ] + [(n, 3, "border", torch.bfloat16, path, phase, hw)
+         for n, hw, path, phase in vfi_cases]:
+        img, gx, gy = sample_inputs(n, c, mode, *hw)
         k = WP.bilinear_sample(img, gx, gy, mode, tap_dtype=td)
         p = WP.bilinear_sample_plain(img, gx, gy, mode, tap_dtype=td)
         err = (k.float() - p.float()).abs().max().item()
@@ -252,7 +286,8 @@ def kernel_phase(device):
             "mono_vifi_tpu/ops/pallas/warp.py:139" if td == torch.bfloat16
             else "mono_vifi_tpu/ops/pallas/warp.py:59",
             err, 0.0, ms, pms, nbytes, flops, lib,
-        ) | {"shape": f"img {tuple(img.shape)} f32, {str(td)[6:]} taps, {mode}"}
+        ) | {"shape": f"img {tuple(img.shape)} f32, {str(td)[6:]} taps, {mode}"
+                      + (", Cityscapes VFI crop" if hw == VFI_CROP_CS else "")}
             | ({"path": path, "launch_shape": tuple(img.shape)} if path else {})
             | ({"phase": phase} if phase else {}))
     out["bilinear_sample"] = variants[0] | {"variants": variants[1:]}
@@ -262,10 +297,8 @@ def kernel_phase(device):
     variants = []
     stack_path = {12: "photometric warp, 6B targets x 2 sources",
                   6: "photometric warp, 3B affine targets x 2"}
-    for k, n, phase in [(12, 12 * B, None)] + [(k, k * b, label)
-                                               for label, _, b, _ in BACKBONE_STEPS
-                                               for k in (12, 6)]:
-        img, gx, gy = sample_inputs(n, 3, "border")
+
+    def sample_bwd_case(img, gx, gy, path, phase, w=W):
         ct = torch.randn(img.shape, generator=gen, device=device)
         td = torch.bfloat16
         kx, ky = WP.bilinear_sample_bwd(img, gx, gy, ct, tap_dtype=td)
@@ -273,24 +306,39 @@ def kernel_phase(device):
         err = max((kx - px).abs().max().item(), (ky - py).abs().max().item())
         # the channel sums run in another order than autograd's reductions:
         # four f32 roundings of each of the C terms, each at most max|ct| *
-        # max|img|, scaled by the unnormalize's (W - 1) / 2
-        tol = 4 * 3 * 2.0**-23 * (W - 1) / 2 * ct.abs().max().item() * img.abs().max().item()
+        # max|img|, scaled by the unnormalize's (w - 1) / 2
+        tol = 4 * 3 * 2.0**-23 * (w - 1) / 2 * ct.abs().max().item() * img.abs().max().item()
         ms = time_ms(lambda: WP.bilinear_sample_bwd(img, gx, gy, ct, tap_dtype=td))
         pms = time_ms(lambda: WP.bilinear_sample_grid_bwd_plain(img, gx, gy, ct, tap_dtype=td),
                       iters=5)
         grid = torch.stack([gx, gy], -1)
         lib = time_ms(lambda: torch.ops.aten.grid_sampler_2d_backward(
             ct, img, grid, 0, 1, True, [False, True]))
-        variants.append(entry(
+        return entry(
             "bilinear_sample_bwd", "mono_vifi_tpu_torch/csrc/warp.cu",
             "none: the port's own gradient kernel (the JAX side took the grid's "
             "gradient of mono_vifi_tpu/ops/pallas/warp.py:258 in XLA)",
             err, tol, ms, pms, 2 * img.numel() * 4 + 4 * gx.numel() * 4,
             30.0 * gx.numel() + 16.0 * img.numel(), lib,
-        ) | {"shape": f"img, ct {tuple(img.shape)} f32, bf16 taps, border",
-             "path": stack_path[k], "launch_shape": tuple(img.shape)}
-            | ({"phase": phase} if phase else {}))
-        del img, gx, gy, ct, grid, kx, ky, px, py
+        ) | {"shape": f"img, ct {tuple(img.shape)} f32, bf16 taps, border"} | (
+            {"path": path, "launch_shape": tuple(img.shape)} if path else {}) | (
+            {"phase": phase} if phase else {})
+
+    for k, n, phase in [(12, 12 * B, None)] + [(k, k * b, label)
+                                               for label, _, b, _ in BACKBONE_STEPS
+                                               for k in (12, 6)]:
+        img, gx, gy = sample_inputs(n, 3, "border")
+        variants.append(sample_bwd_case(img, gx, gy, stack_path[k], phase))
+        del img, gx, gy
+    # the VFI step's image-warp gradient (the flows' training signal) at the
+    # KITTI crop (phase 10) and the Cityscapes crop (no phase runs it)
+    for n, (h, w), path, phase in vfi_cases:
+        img, gx, gy = sample_inputs(n, 3, "border", h, w)
+        v = sample_bwd_case(img, gx, gy, path, phase, w)
+        if not path:
+            v["shape"] += ", Cityscapes VFI crop"
+        variants.append(v)
+        del img, gx, gy
     out["bilinear_sample_bwd"] = variants[0] | {"variants": variants[1:]}
 
     # kernels 2 and 3: the photometric map over the 6B-target stack, then
@@ -470,6 +518,7 @@ def kernel_phase(device):
               for label, _, b, bl in BACKBONE_STEPS for C, h, w in bl]
     cases += [(BI, (0, 2), torch.float32, C, h, w, "smooth", label)
               for label, _, bl, _ in BACKBONE_INFERENCE for C, h, w in bl]
+    cases += [(1, (0, 2), torch.float32, C, h, w, "smooth", TEST_VIDEO) for C, h, w in levels]
     cases += [(B, TABLE_USES, torch.bfloat16, 64, H // 2, W // 2, "far", None)]
     for b, uses, dt, C, h, w, kind, path in cases:
         U, N = 3 * b, len(uses) * b
@@ -738,12 +787,12 @@ def write_kitti_tree(root, n_frames: int = 62, n_test: int = N_TEST):
     return splits
 
 
-def driver_phase(card: str) -> dict:
-    """Phase 7: the training driver at full width on real PNG decoding:
-    epoch 0, its evaluation and save, a resumed trainer, epoch 1."""
+def driver_phase(card: str, tmp: str) -> dict:
+    """Phase 7: the training driver at full width on real PNG decoding of
+    the synthetic tree in `tmp`: epoch 0, its evaluation and save, a resumed
+    trainer, epoch 1."""
     import dataclasses
     import os
-    import tempfile
 
     import torch
 
@@ -751,88 +800,85 @@ def driver_phase(card: str) -> dict:
     from mono_vifi_tpu_torch.config import parse_options
     from mono_vifi_tpu_torch.ops import cuda
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        T.SPLITS_DIR = write_kitti_tree(tmp)
-        log(f"driver: synthetic KITTI tree written in {time.perf_counter() - t0:.1f} s")
-        cfg = parse_options([
-            "-c", "configs/resnet18/ResNet18_KITTI_MR.txt",
-            "--data_path", os.path.join(tmp, "kitti"), "--log_dir", os.path.join(tmp, "logs"),
-            "--split", "smoke", "--eval_split", "eigen", "--num_epochs", "2",
-            "--save_frequency", "3", "--log_frequency", "1", "--weights_init", "scratch",
-            "--device", "cuda", "--resume", "False",
-        ])
-        log(f"driver: {cfg.exp_name}, {cfg.backbone} {cfg.width}x{cfg.height}, batch "
-            f"{cfg.batch_size}, affine {cfg.use_affine}, {cfg.fuse_model_type}, "
-            f"{cfg.compute_dtype}, VFI {cfg.vfi_train_scale} / {cfg.vfi_test_scale}, "
-            f"{cfg.num_workers} loader threads")
-        t1 = T.Trainer(cfg)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        cuda.reset_launch_counts()
-        t0 = time.perf_counter()
-        t1.run_epoch(0)
-        torch.cuda.synchronize()
-        wall0 = time.perf_counter() - t0
-        steps, step_shapes = dict(cuda.LAUNCHES), dict(cuda.LAUNCH_SHAPES)
-        mid = torch.load(t1.ckpt_path, map_location="cpu", weights_only=True)
-        if (mid["epoch"], mid["batch_idx"], mid["step_in_total"]) != (0, 4, 4):
-            raise AssertionError(f"mid-epoch checkpoint at {mid['epoch']}, "
-                                 f"{mid['batch_idx']}, {mid['step_in_total']}")
-        log("driver: mid-epoch checkpoint at epoch 0, batch_idx 4, step 4")
-        del mid
-        cuda.reset_launch_counts()
-        t1.end_epoch(0)
-        evals, eval_shapes = dict(cuda.LAUNCHES), dict(cuda.LAUNCH_SHAPES)
-        if evals["bilinear_sample_table"] <= 0:
-            raise AssertionError("bilinear_sample_table not launched in the driver's eval")
-        # the evaluation's disparities with the kernels against every plain
-        # version, on the trained bf16 weights and the test split's frames
-        dk = t1._predict_disps(multi_frame=True)
-        with cuda.plain_versions():
-            dp = t1._predict_disps(multi_frame=True)
-        err = float(np.abs(dk - dp).max())
-        log(f"driver: multi-frame evaluation disparities, kernels vs plain: max abs error "
-            f"{err:.3e} (tol 1e-5)")
-        if not err <= 1e-5:
-            raise AssertionError(f"driver's multi-frame disparities differ: {err}")
-        saved = torch.load(t1.ckpt_path, map_location="cpu", weights_only=True)
-        if not os.path.exists(os.path.join(t1.log_path, "models", "model_0.pth")):
-            raise AssertionError("no models/model_0.pth")
-        history0, results = t1.history, dict(t1.eval_results)
-        t1.close()
-        del t1
+    T.SPLITS_DIR = os.path.join(tmp, "splits")
+    cfg = parse_options([
+        "-c", "configs/resnet18/ResNet18_KITTI_MR.txt",
+        "--data_path", os.path.join(tmp, "kitti"), "--log_dir", os.path.join(tmp, "logs"),
+        "--split", "smoke", "--eval_split", "eigen", "--num_epochs", "2",
+        "--save_frequency", "3", "--log_frequency", "1", "--weights_init", "scratch",
+        "--device", "cuda", "--resume", "False",
+    ])
+    log(f"driver: {cfg.exp_name}, {cfg.backbone} {cfg.width}x{cfg.height}, batch "
+        f"{cfg.batch_size}, affine {cfg.use_affine}, {cfg.fuse_model_type}, "
+        f"{cfg.compute_dtype}, VFI {cfg.vfi_train_scale} / {cfg.vfi_test_scale}, "
+        f"{cfg.num_workers} loader threads")
+    t1 = T.Trainer(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    t1.run_epoch(0)
+    torch.cuda.synchronize()
+    wall0 = time.perf_counter() - t0
+    steps, step_shapes = dict(cuda.LAUNCHES), dict(cuda.LAUNCH_SHAPES)
+    mid = torch.load(t1.ckpt_path, map_location="cpu", weights_only=True)
+    if (mid["epoch"], mid["batch_idx"], mid["step_in_total"]) != (0, 4, 4):
+        raise AssertionError(f"mid-epoch checkpoint at {mid['epoch']}, "
+                             f"{mid['batch_idx']}, {mid['step_in_total']}")
+    log("driver: mid-epoch checkpoint at epoch 0, batch_idx 4, step 4")
+    del mid
+    cuda.reset_launch_counts()
+    t1.end_epoch(0)
+    evals, eval_shapes = dict(cuda.LAUNCHES), dict(cuda.LAUNCH_SHAPES)
+    if evals["bilinear_sample_table"] <= 0:
+        raise AssertionError("bilinear_sample_table not launched in the driver's eval")
+    # the evaluation's disparities with the kernels against every plain
+    # version, on the trained bf16 weights and the test split's frames
+    dk = t1._predict_disps(multi_frame=True)
+    with cuda.plain_versions():
+        dp = t1._predict_disps(multi_frame=True)
+    err = float(np.abs(dk - dp).max())
+    log(f"driver: multi-frame evaluation disparities, kernels vs plain: max abs error "
+        f"{err:.3e} (tol 1e-5)")
+    if not err <= 1e-5:
+        raise AssertionError(f"driver's multi-frame disparities differ: {err}")
+    saved = torch.load(t1.ckpt_path, map_location="cpu", weights_only=True)
+    if not os.path.exists(os.path.join(t1.log_path, "models", "model_0.pth")):
+        raise AssertionError("no models/model_0.pth")
+    history0, results = t1.history, dict(t1.eval_results)
+    t1.close()
+    del t1
 
-        t2 = T.Trainer(dataclasses.replace(cfg, resume=True))
-        at = (t2.ep_start, t2.batch_start, t2.state.step)
-        if at != (1, 0, 6):
-            raise AssertionError(f"resumed at epoch, batch, step {at}, expected (1, 0, 6)")
-        got = t2.state.optimizer.state_dict()["state"]
-        for i, s in saved["optimizer"]["state"].items():
-            for k, v in s.items():
-                if not torch.equal(got[i][k].cpu(), v):
-                    raise AssertionError(f"optimizer state {i}.{k} differs after resume")
-        for role, m in t2.bundle.trainable_roles().items():
-            for k, v in m.state_dict().items():
-                if not torch.equal(v.cpu(), saved[role][k]):
-                    raise AssertionError(f"{role}.{k} differs after resume")
-        log(f"driver: resumed at epoch 1, step 6; {len(got)} optimizer states and every "
-            "weight and BatchNorm buffer equal to the saved ones bit for bit")
-        del saved
-        cuda.reset_launch_counts()
-        t0 = time.perf_counter()
-        t2.run_epoch(1)
-        torch.cuda.synchronize()
-        wall1 = time.perf_counter() - t0
-        for k, v in cuda.LAUNCHES.items():
-            steps[k] += v
-        for k, v in cuda.LAUNCH_SHAPES.items():
-            step_shapes[k] = step_shapes.get(k, 0) + v
-        t2.end_epoch(1)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        history1 = t2.history
-        results.update(t2.eval_results)
-        t2.close()
+    t2 = T.Trainer(dataclasses.replace(cfg, resume=True))
+    at = (t2.ep_start, t2.batch_start, t2.state.step)
+    if at != (1, 0, 6):
+        raise AssertionError(f"resumed at epoch, batch, step {at}, expected (1, 0, 6)")
+    got = t2.state.optimizer.state_dict()["state"]
+    for i, s in saved["optimizer"]["state"].items():
+        for k, v in s.items():
+            if not torch.equal(got[i][k].cpu(), v):
+                raise AssertionError(f"optimizer state {i}.{k} differs after resume")
+    for role, m in t2.bundle.trainable_roles().items():
+        for k, v in m.state_dict().items():
+            if not torch.equal(v.cpu(), saved[role][k]):
+                raise AssertionError(f"{role}.{k} differs after resume")
+    log(f"driver: resumed at epoch 1, step 6; {len(got)} optimizer states and every "
+        "weight and BatchNorm buffer equal to the saved ones bit for bit")
+    del saved
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    t2.run_epoch(1)
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    for k, v in cuda.LAUNCHES.items():
+        steps[k] += v
+    for k, v in cuda.LAUNCH_SHAPES.items():
+        step_shapes[k] = step_shapes.get(k, 0) + v
+    t2.end_epoch(1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    history1 = t2.history
+    results.update(t2.eval_results)
+    t2.close()
 
     missing = [k for k, v in steps.items() if v <= 0]
     if missing:
@@ -865,6 +911,219 @@ def driver_phase(card: str) -> dict:
             "eval_shapes": eval_shapes}
 
 
+def vfi_phase(card: str, tmp: str):
+    """Phase 10: VFI training from configs/vfi/IFRNet_L_KITTI.txt at full
+    width (IFRNet-L, batch 16, crop 160x576, bf16; random init from the
+    config's seed) on the synthetic tree in `tmp`: the timed step, kernels
+    vs plain, then the real VFITrainer's epoch with a mid-epoch checkpoint,
+    a resumed trainer, and the depth Trainer taking the checkpoint as its
+    frozen VFI. -> (launches, launches by shape) of the timed steps."""
+    import dataclasses
+    import os
+    import shutil
+
+    import torch
+
+    from mono_vifi_tpu_torch import train as T
+    from mono_vifi_tpu_torch import train_vfi as TV
+    from mono_vifi_tpu_torch.config import parse_options
+    from mono_vifi_tpu_torch.data import device_prefetch
+    from mono_vifi_tpu_torch.ops import cuda
+    from mono_vifi_tpu_torch.training import vfi as V
+    from mono_vifi_tpu_torch.training.monovifi import prepare_batch
+    from mono_vifi_tpu_torch.training.optim import global_norm
+
+    # the 60 lines of phase 7's split twice: 7 steps of 16 a epoch
+    splits = os.path.join(tmp, "splits")
+    lines = open(os.path.join(splits, "kitti", "smoke", "train_files.txt")).read()
+    os.makedirs(os.path.join(splits, "kitti", "vfi"))
+    with open(os.path.join(splits, "kitti", "vfi", "train_files.txt"), "w") as f:
+        f.write(lines + "\n" + lines)
+    TV.SPLITS_DIR = splits
+    cfg = parse_options([
+        "-c", "configs/vfi/IFRNet_L_KITTI.txt", "--data_path", os.path.join(tmp, "kitti"),
+        "--log_dir", os.path.join(tmp, "vfi_logs"), "--split", "vfi", "--num_epochs", "2",
+        "--log_frequency", "1", "--save_frequency", str(VFI_SAVE), "--pretrained_path", "",
+        "--resume", "False", "--device", "cuda",
+    ])
+    log(f"{VFI_STEP}: {cfg.exp_name}, IFRNet-{cfg.vfi_scale} {cfg.width}x{cfg.height} "
+        f"cropped to {VFI_CROP}, batch {cfg.batch_size}, {cfg.compute_dtype}, "
+        f"{cfg.lr_sche_type} lr {cfg.learning_rate} to {cfg.eta_min}, clip {cfg.clip_grad}")
+    a = TV.VFITrainer(cfg)
+
+    # the step on the loader's first batch: 2 warm-up and 5 timed steps of a
+    # second state from the same seed, counted
+    state = V.create_vfi_state(cfg, max(cfg.seed, 0), a.steps_per_epoch, "cuda")
+    step = V.make_vfi_train_step(cfg.clip_grad)
+    batch = next(iter(device_prefetch(a.loader, "cuda")))
+    for _ in range(2):
+        step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        metrics, _ = step(state, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches, shapes = dict(cuda.LAUNCHES), dict(cuda.LAUNCH_SHAPES)
+    loss, psnr, gnorm = (float(metrics[k]) for k in ("loss", "psnr", "grad_norm"))
+    log(f"{VFI_STEP}: {dt / 5 * 1e3:.1f} ms/step, {VFI_B * 5 / dt:.2f} samples/s, loss "
+        f"{loss:.4f}, psnr {psnr:.2f}, grad_norm {gnorm:.4f}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
+    log(f"{VFI_STEP}: launches over 5 steps: {launches}")
+    for (name, shape), count in sorted(shapes.items()):
+        log(f"  {name} at {shape}: {count}")
+    if not all(math.isfinite(x) for x in (loss, psnr, gnorm)):
+        raise AssertionError(f"non-finite VFI step: {metrics}")
+    for name in ("bilinear_sample", "bilinear_sample_bwd"):
+        if shapes.get((name, (2 * VFI_B, 3) + VFI_CROP), 0) != 5:
+            raise AssertionError(f"{name} not launched once a step at the VFI crop")
+
+    # kernels vs every plain version on the same weights and batch: the loss
+    # and the gradient norm (the flows' gradient comes through the image
+    # warps' grid gradient)
+    b = prepare_batch(batch, "cuda")
+
+    def loss_and_grad_norm():
+        state.optimizer.zero_grad(set_to_none=True)
+        out = state.module(b["img0"], b["img2"], b["embt"].reshape(-1, 1, 1, 1),
+                           imgt=b["img1"])
+        out["loss"].backward()
+        return out["loss"].item(), global_norm([p.grad for p in state.params]).item()
+
+    got = loss_and_grad_norm()
+    with cuda.plain_versions():
+        ref = loss_and_grad_norm()
+    for term, x, y in zip(("loss", "gradient norm"), got, ref):
+        rel = abs(x - y) / max(abs(y), 1e-12)
+        log(f"{VFI_STEP} {term}: kernels {x:.6f} plain {y:.6f} rel {rel:.2e} (tol 1e-3)")
+        if not (math.isfinite(x) and rel <= 1e-3):
+            raise AssertionError(f"VFI step {term} differs: {x} vs {y}")
+    del state, step, batch, b
+
+    # the driver: epoch 0 (7 steps; a checkpoint after step 5), a trainer
+    # resumed from it, bit for bit, which takes steps 6 and 7
+    t0 = time.perf_counter()
+    a.run_epoch(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = len(a.history)
+    log(f"{VFI_STEP} driver ({card}): epoch 0, {n} steps in {wall:.2f} s, "
+        f"{n * VFI_B / wall:.2f} samples/s with logging and visuals every step and the "
+        f"checkpoint; losses {[round(h['loss'], 4) for h in a.history]}")
+    saved = torch.load(a.ckpt_path, map_location="cpu", weights_only=True)
+    at = (saved["epoch"], saved["batch_idx"], saved["step_in_total"])
+    if n != 7 or at != (0, VFI_SAVE + 1, VFI_SAVE + 1):
+        raise AssertionError(f"VFI driver: {n} steps, checkpoint at {at}")
+    c = TV.VFITrainer(dataclasses.replace(cfg, resume=True))
+    if (c.ep_start, c.batch_start, c.state.step) != at:
+        raise AssertionError("VFI trainer resumed at "
+                             f"{(c.ep_start, c.batch_start, c.state.step)}, expected {at}")
+    for k, v in c.state.module.state_dict().items():
+        if not torch.equal(v.cpu(), saved["VFI"][k]):
+            raise AssertionError(f"VFI.{k} differs after resume")
+    got = c.state.optimizer.state_dict()["state"]
+    for i, st in saved["optimizer"]["state"].items():
+        for k, v in st.items():
+            if not torch.equal(got[i][k].cpu(), v):
+                raise AssertionError(f"VFI optimizer state {i}.{k} differs after resume")
+    c.run_epoch(0)
+    resumed = [h["loss"] for h in c.history]
+    straight = [h["loss"] for h in a.history[VFI_SAVE + 1:]]
+    log(f"{VFI_STEP} driver: resumed at {at} with every weight and {len(got)} optimizer "
+        f"states bit for bit; steps 6-7 losses {resumed} (uninterrupted {straight})")
+    if len(resumed) != 2 or not all(math.isfinite(x) for x in resumed):
+        raise AssertionError(f"resumed VFI losses {resumed}")
+    a.save_model(0, ep_end=True)
+    a.close()
+    c.close()
+
+    # the depth trainer's frozen VFI from that checkpoint
+    weights = os.path.join(tmp, "weights")
+    os.makedirs(weights)
+    shutil.copy(a.ckpt_path, os.path.join(weights, "IFRNet_L_KITTI.pth"))
+    saved = torch.load(a.ckpt_path, map_location="cpu", weights_only=True)
+    T.SPLITS_DIR = splits
+    depth = T.Trainer(parse_options([
+        "-c", "configs/resnet18/ResNet18_KITTI_MR.txt", "--data_path", os.path.join(tmp, "kitti"),
+        "--log_dir", os.path.join(tmp, "logs"), "--exp_name", "frozen_vfi", "--split", "smoke",
+        "--eval_split", "eigen", "--weights_dir", weights, "--weights_init", "scratch",
+        "--device", "cuda", "--resume", "False",
+    ]))
+    for k, v in depth.bundle.vfi_train.state_dict().items():
+        if not torch.equal(v.cpu(), saved["VFI"][k]):
+            raise AssertionError(f"frozen VFI {k} differs from the VFI checkpoint")
+    depth.close()
+    log(f"{VFI_STEP}: the depth Trainer's frozen IFRNet-L equals the VFI checkpoint "
+        f"(epoch {saved['epoch']}, step {saved['step_in_total']}) bit for bit")
+    return launches, shapes
+
+
+def entries_phase(card: str, tmp: str):
+    """Phase 11: `test_simple` and `test_video` on PNG frames of the tree in
+    `tmp` at 640x192 (random weights; IFRNet-S random-init): the files they
+    write, test_video's table-sample launches at batch 1, and its
+    multi-frame disparities with the kernels against every plain version.
+    -> (launches, launches by shape) of the test_video run."""
+    import glob
+    import os
+    import shutil
+
+    import torch
+
+    from mono_vifi_tpu_torch import test_simple as TS
+    from mono_vifi_tpu_torch import test_video as TVID
+    from mono_vifi_tpu_torch.ops import cuda
+
+    frames = os.path.join(tmp, "frames")
+    os.makedirs(frames)
+    src = sorted(glob.glob(os.path.join(tmp, "kitti", "*", "*", "image_02", "data", "*.png")))
+    for p in src[:4]:
+        shutil.copy(p, frames)
+    t0 = time.perf_counter()
+    TS.main(TS.parse_args(["--image_path", frames, "--save_npy"]))
+    log(f"{TEST_VIDEO}: test_simple over 4 frames in {time.perf_counter() - t0:.2f} s")
+    for p in src[:4]:
+        name = os.path.splitext(os.path.basename(p))[0]
+        disp = np.load(os.path.join(frames, f"{name}_disp.npy"))
+        if disp.shape != (H, W) or not np.isfinite(disp).all() or not os.path.exists(
+                os.path.join(frames, f"{name}_disp.jpeg")):
+            raise AssertionError(f"test_simple output of {name}: {disp.shape}")
+
+    def run(out):
+        TVID.main(TVID.parse_args(["--image_path", frames, "--save_npy", "--output_path",
+                                   os.path.join(tmp, out)]))
+
+    run("video_warm")
+    torch.cuda.synchronize()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    run("video")
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches, shapes = dict(cuda.LAUNCHES), dict(cuda.LAUNCH_SHAPES)
+    log(f"{TEST_VIDEO}: 4 frames (single- and multi-frame each, batch 1) in {dt:.2f} s "
+        f"with model build and file writes, {card}; launches {launches}")
+    with cuda.plain_versions():
+        run("video_plain")
+    err = 0.0
+    for p in src[:4]:
+        name = os.path.splitext(os.path.basename(p))[0]
+        k = np.load(os.path.join(tmp, "video", f"{name}_disp_mf.npy"))
+        q = np.load(os.path.join(tmp, "video_plain", f"{name}_disp_mf.npy"))
+        if k.shape != (H, W) or not np.isfinite(k).all():
+            raise AssertionError(f"test_video output of {name}: {k.shape}")
+        err = max(err, float(np.abs(k - q).max()))
+    log(f"{TEST_VIDEO}: multi-frame scaled disparities, kernels vs plain: max abs error "
+        f"{err:.3e} (tol 1e-5)")
+    if not err <= 1e-5:
+        raise AssertionError(f"test_video multi-frame disparities differ: {err}")
+    if not os.path.exists(os.path.join(tmp, "video", "demo.gif")):
+        raise AssertionError("test_video wrote no demo.gif")
+    return launches, shapes
+
+
 def main() -> int:
     import torch
 
@@ -892,16 +1151,25 @@ def main() -> int:
     kernels = kernel_phase(device)
     launches, shapes = step_phase(device, card=card)
     inference, inference_shapes = inference_phase(device, card=card)
-    driver = driver_phase(card)
-    # phases 8 and 9: the other backbones' steps and inference, each with its
-    # own counts (set to 0 just before the path runs, read just after)
     extra = {}
-    for label, config, _, _ in BACKBONE_STEPS:
+    with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        extra[label] = step_phase(device, config, label, card)
-        log(f"{label}: phase took {time.perf_counter() - t0:.1f} s")
-    for label, backbone, _, single in BACKBONE_INFERENCE:
-        extra[label] = inference_phase(device, backbone, single, card)
+        write_kitti_tree(tmp)
+        log(f"synthetic KITTI tree written in {time.perf_counter() - t0:.1f} s")
+        driver = driver_phase(card, tmp)
+        # phases 8-11: the other backbones' steps and inference, VFI training
+        # and the test entry points, each with its own counts (set to 0 just
+        # before the path runs, read just after)
+        for label, config, _, _ in BACKBONE_STEPS:
+            t0 = time.perf_counter()
+            extra[label] = step_phase(device, config, label, card)
+            log(f"{label}: phase took {time.perf_counter() - t0:.1f} s")
+        for label, backbone, _, single in BACKBONE_INFERENCE:
+            extra[label] = inference_phase(device, backbone, single, card)
+        for label, phase in ((VFI_STEP, vfi_phase), (TEST_VIDEO, entries_phase)):
+            t0 = time.perf_counter()
+            extra[label] = phase(card, tmp)
+            log(f"{label}: phase took {time.perf_counter() - t0:.1f} s")
     # each variant's counts are those of the path it belongs to: the training
     # step's (phase 4, and the driver's 12 steps as driver_launches), the
     # multi-frame inference's (phase 6), the driver's evaluation (phase 7) or

@@ -1,10 +1,10 @@
 """Single-frame depth evaluation (the port's counterpart of evaluate_depth.py;
 reference evaluate_depth.py).
 
-Evaluates a checkpoint on KITTI (eigen and eigen_benchmark) and/or
-Cityscapes, gated by which --*_path flags are set. Reads reference `.pth`
-checkpoints and the JAX package's weight-only `.pkl` snapshots. Runs on the
-card unless `--device cpu` is given:
+Evaluates a checkpoint on KITTI (eigen and eigen_benchmark), Make3D, NYU
+Depth v2 and/or Cityscapes, gated by which --*_path flags are set. Reads
+reference `.pth` checkpoints and the JAX package's weight-only `.pkl`
+snapshots. Runs on the card unless `--device cpu` is given:
 
     python -m mono_vifi_tpu_torch.evaluate_depth --pretrained_path ckpt.pth \
         --kitti_path /data/kitti [--post_process] [--use_stereo] [--device cpu]
@@ -108,18 +108,11 @@ def predict_disps(args, bundle, images_iter) -> np.ndarray:
     return np.concatenate(disps, 0)
 
 
-def refuse_unported(args) -> None:
-    for flag in ("make3d_path", "nyuv2_path"):
-        if getattr(args, flag, None):
-            raise NotImplementedError(
-                f"--{flag}: the {flag[:-5]} reader is not ported yet (ROADMAP queue 1, item 12)"
-            )
-
-
 def main(args):
-    from mono_vifi_tpu_torch.data import CityscapesDataset, DataLoader, KITTIRAWDataset
+    from mono_vifi_tpu_torch.data import (
+        CityscapesDataset, DataLoader, KITTIRAWDataset, Make3DDataset, NYUDataset,
+    )
 
-    refuse_unported(args)
     resolve_device(args.device)
     set_f32_math()
     bundle = load_model(args)
@@ -141,6 +134,22 @@ def main(args):
                          fix_imports=True, encoding="latin1", allow_pickle=True)["data"]
             pred = predict_disps(args, bundle, (b["color_0"] for b in loader))
             evaluation.evaluate_kitti(pred, gt, split, args.use_stereo)
+
+    if args.make3d_path:
+        print(" Evaluate on Make3D:")
+        files = readlines(os.path.join(SPLITS_DIR, "make3d", "test_files.txt"))
+        ds = Make3DDataset(args.make3d_path, files, (args.height, args.width))
+        items = [ds[i] for i in range(len(ds))]
+        pred = predict_disps(args, bundle, (it["color"][None] for it in items))
+        evaluation.evaluate_make3d(pred, [it["depth"] for it in items], args.use_stereo)
+
+    if args.nyuv2_path:
+        print(" Evaluate on NYU Depth v2:")
+        files = readlines(os.path.join(SPLITS_DIR, "nyuv2", "test_files.txt"))
+        ds = NYUDataset(args.nyuv2_path, files, args.height, args.width, [0], 1)
+        items = [ds.load_test_item(i) for i in range(len(ds))]
+        pred = predict_disps(args, bundle, (rgb[None] for rgb, _ in items))
+        evaluation.evaluate_nyuv2(pred, [depth for _, depth in items])
 
     if args.cityscapes_path:
         print(" Evaluate on Cityscapes:")

@@ -5,8 +5,11 @@ A 4-level conv pyramid encodes both frames; four decoders refine the
 bidirectional flows coarse to fine, warping the encoder features of both
 frames by the current flows. The full-resolution head gives two flows and a
 merge mask. The feature warps use the plain differentiable warp; the two
-full-resolution image warps go through the `bilinear_sample` kernel.
-Sampling grids are built in f32 whatever the compute dtype.
+full-resolution image warps go through the `bilinear_sample` kernel, whose
+grid gradient (`bilinear_sample_bwd`) trains the flows in VFI training.
+Sampling grids are built in f32 whatever the compute dtype. Given the middle
+frame `imgt`, the forward also returns the VFI training loss (Charbonnier
+L1 + ternary census + 0.01 * geometry; reference :436-438).
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch.nn as nn
 
 from mono_vifi_tpu_torch.models.common import Conv, ConvPReLU, ConvTranspose4x4, PReLU
 from mono_vifi_tpu_torch.ops.image import resize_bilinear
+from mono_vifi_tpu_torch.ops.losses import charbonnier_l1, geometry_loss, ternary_loss
 from mono_vifi_tpu_torch.ops.sampling import flow_to_grid, sample_planar, warp_planar
 
 PYRAMID_CHANNELS = {
@@ -87,10 +91,10 @@ class _Decoder(nn.Module):
 
 
 class IFRNet(nn.Module):
-    """forward(img0, img1, embt, only_flow=False) on NCHW images returns
-    {"flow0", "flow1", "mask"} (+ "imgt_pred" unless only_flow); flows are
-    (B, 2, H, W) pixel displacements in the compute dtype, the mask
-    (B, 1, H, W)."""
+    """forward(img0, img1, embt, imgt=None, only_flow=False) on NCHW images
+    returns {"flow0", "flow1", "mask"} (+ "imgt_pred" unless only_flow, +
+    "loss" given `imgt`); flows are (B, 2, H, W) pixel displacements in the
+    compute dtype, the mask (B, 1, H, W)."""
 
     def __init__(self, scale: str = "large", dtype=torch.float32):
         super().__init__()
@@ -103,7 +107,7 @@ class IFRNet(nn.Module):
         self.decoder2 = _Decoder(3 * c2 + 4, 3 * c2, 4 + c1, side, dtype)
         self.decoder1 = _Decoder(3 * c1 + 4, 3 * c1, 8, side, dtype)
 
-    def forward(self, img0, img1, embt, only_flow: bool = False):
+    def forward(self, img0, img1, embt, imgt=None, only_flow: bool = False):
         B, _, H, W = img0.shape
         sf = resolve_scale_factor(H, W)
         mean_ = 0.5 * (img0.mean(dim=(1, 2, 3), keepdim=True)
@@ -111,16 +115,21 @@ class IFRNet(nn.Module):
         img0 = img0 - mean_
         img1 = img1 - mean_
         fh, fw = int(H * sf[0]), int(W * sf[1])
-        # both frames through the (normalization-free) encoder in one pass
-        feats = self.encoder(resize_bilinear(torch.cat([img0, img1], 0), (fh, fw)))
+        # every frame through the (normalization-free) encoder in one pass
+        frames = [img0, img1]
+        if imgt is not None and not only_flow:
+            imgt_sub = imgt - mean_
+            frames.append(imgt_sub)
+        feats = self.encoder(resize_bilinear(torch.cat(frames, 0), (fh, fw)))
         f0 = [f[:B] for f in feats]
-        f1 = [f[B:] for f in feats]
+        f1 = [f[B:2 * B] for f in feats]
 
         embt_map = embt.reshape(B, 1, 1, 1).to(f0[3].dtype).expand(
             B, 1, *f0[3].shape[2:]
         )
         out = self.decoder4(torch.cat([f0[3], f1[3], embt_map], 1))
         flow0, flow1, ft_ = out[:, 0:2], out[:, 2:4], out[:, 4:]
+        fts = [ft_]  # the decoders' feature outputs, coarse to fine
         for dec, lvl in ((self.decoder3, 2), (self.decoder2, 1), (self.decoder1, 0)):
             fw_ = warp_planar(
                 torch.cat([f0[lvl], f1[lvl]], 0), torch.cat([flow0, flow1], 0)
@@ -131,6 +140,7 @@ class IFRNet(nn.Module):
             flow0 = out[:, 0:2] + up0
             flow1 = out[:, 2:4] + up1
             ft_ = out[:, 4:]
+            fts.append(ft_)
 
         mask = torch.sigmoid(ft_[:, 0:1])
         scale = torch.tensor([1.0 / sf[1], 1.0 / sf[0]], dtype=flow0.dtype,
@@ -149,4 +159,13 @@ class IFRNet(nn.Module):
                            tap_dtype=tap_dtype)
         merge = mask_full * w2[:B] + (1 - mask_full) * w2[B:]
         res["imgt_pred"] = torch.clamp(merge + mean_, 0.0, 1.0)
+        if imgt is not None:
+            # on the merge before the clamp; the middle frame's features
+            # against the decoders' at levels 1-3 (reference :430-438)
+            ft = [f[2 * B:] for f in feats]
+            res["loss"] = (
+                charbonnier_l1(merge - imgt_sub) + ternary_loss(merge, imgt_sub)
+                + 0.01 * (geometry_loss(fts[2], ft[0]) + geometry_loss(fts[1], ft[1])
+                          + geometry_loss(fts[0], ft[2]))
+            )
         return res

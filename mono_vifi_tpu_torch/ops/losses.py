@@ -1,6 +1,7 @@
 """Loss building blocks of the training step (counterpart of the
 channel-planar functions of mono_vifi_tpu/ops/losses.py): the SSIM+L1
-photometric map, edge-aware smoothness and the SI-log depth consistency.
+photometric map, edge-aware smoothness and the SI-log depth consistency;
+and the IFRNet VFI training losses (Charbonnier, census and geometry).
 
 Planes are (B, C, H, W); disparities and depths (B, 1, H, W) or (B, H, W)
 where stated. `reprojection_loss_planar` is the plain version of the
@@ -98,3 +99,68 @@ def si_log_depth_loss(pred, target, mask=None, beta: float = 0.5):
     sq_sum = torch.sum(diff**2, dim=(1, 2))
     sum_sq = torch.sum(diff, dim=(1, 2)) ** 2
     return torch.mean(sq_sum / valid - beta * sum_sq / (valid**2))
+
+
+# ------------------------------------------------ IFRNet VFI training losses
+# (counterpart of mono_vifi_tpu/ops/losses.py:228-328; reference
+# networks/IFRNet.py:18-114), on NCHW tensors
+
+
+def charbonnier_l1(diff, mask=None):
+    """Charbonnier L1 (networks/IFRNet.py:94-103)."""
+    val = torch.sqrt(diff**2 + 1e-6)
+    if mask is None:
+        return torch.mean(val)
+    return torch.mean(val * mask) / (torch.mean(mask) + 1e-9)
+
+
+def charbonnier_ada(diff, weight):
+    """Adaptive Charbonnier (networks/IFRNet.py:106-114)."""
+    alpha = weight / 2
+    epsilon = 10 ** (-(10 * weight - 1) / 3)
+    return torch.mean((diff**2 + epsilon**2) ** alpha)
+
+
+def get_robust_weight(flow_pred, flow_gt, beta: float):
+    """exp(-beta * EPE) with the prediction detached (networks/IFRNet.py:
+    18-21); flows (B, 2, H, W) -> (B, 1, H, W)."""
+    epe = torch.sqrt(torch.sum((flow_pred.detach() - flow_gt) ** 2, dim=1, keepdim=True))
+    return torch.exp(-beta * epe)
+
+
+def _census(x, patch_size: int):
+    """Census transform of each channel of (B, C, H, W) `x` -> (B, C * P*P,
+    H, W), channel c's P*P neighbour offsets at c*P*P..: the neighbourhood
+    by a grouped conv with the identity kernel (zero-padded), minus the
+    centre, soft-signed."""
+    C = x.shape[1]
+    P = patch_size
+    kernel = torch.eye(P * P, dtype=x.dtype, device=x.device).reshape(P * P, 1, P, P)
+    patches = F.conv2d(x, kernel.repeat(C, 1, 1, 1), padding=P // 2, groups=C)
+    loc_diff = patches - x.repeat_interleave(P * P, dim=1)
+    return loc_diff / torch.sqrt(0.81 + loc_diff**2)
+
+
+def _census_distance(tx, ty, pad: int):
+    """Mean over the inner window (a border of `pad` left out) of the
+    channel-mean soft Hamming distance of two census transforms."""
+    diff = tx - ty
+    dist = torch.mean(diff**2 / (0.1 + diff**2), dim=1)
+    mask = torch.zeros_like(dist)
+    mask[:, pad:dist.shape[1] - pad, pad:dist.shape[2] - pad] = 1
+    return torch.mean(dist * mask)
+
+
+def ternary_loss(x, y, patch_size: int = 7):
+    """Census-transform distance of the grey images (networks/IFRNet.py:
+    24-55); y is detached."""
+    tx = _census(torch.mean(x, dim=1, keepdim=True), patch_size)
+    ty = _census(torch.mean(y, dim=1, keepdim=True), patch_size).detach()
+    return _census_distance(tx, ty, patch_size // 2)
+
+
+def geometry_loss(x, y, patch_size: int = 3):
+    """Feature-geometry census loss over all channels (networks/IFRNet.py:
+    58-91): the census of every channel, in the features' dtype, then the
+    distance over all C*P*P offsets."""
+    return _census_distance(_census(x, patch_size), _census(y, patch_size), patch_size // 2)

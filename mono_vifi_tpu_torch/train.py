@@ -11,7 +11,7 @@ mid-epoch after a checkpoint), the threaded loader decoding and augmenting
 on the host with uint8 staging, `device_prefetch` copying the next batch
 while a step runs, the fused step, a log line every `log_frequency` steps,
 a checkpoint every `save_frequency` steps; then single- and multi-frame
-evaluation (KITTI, Cityscapes) and the epoch's weights.
+evaluation (KITTI, Cityscapes; NYUv2 single-frame) and the epoch's weights.
 
 cuDNN and TF32: a `Trainer` leaves `torch.backends.cudnn.benchmark` and
 the TF32 switches as its caller set them. The command line entry sets
@@ -39,8 +39,8 @@ import torch
 from mono_vifi_tpu_torch import evaluation
 from mono_vifi_tpu_torch.config import Options, check_port_options, parse_options
 from mono_vifi_tpu_torch.data import (
-    CityscapesDataset, DataLoader, KITTIOdomDataset, KITTIRAWDataset, StatefulSampler,
-    device_prefetch,
+    CityscapesDataset, DataLoader, KITTIOdomDataset, KITTIRAWDataset, NYUDataset,
+    StatefulSampler, device_prefetch,
 )
 from mono_vifi_tpu_torch.evaluate_depth import SPLITS_DIR
 from mono_vifi_tpu_torch.ops.geometry import disp_to_depth
@@ -55,12 +55,11 @@ DATASETS = {
     "kitti": KITTIRAWDataset,
     "kitti_odom": KITTIOdomDataset,
     "cityscapes": CityscapesDataset,
+    "nyuv2": NYUDataset,
 }
 
 
 def dataset_class(name: str):
-    if name == "nyuv2":
-        raise NotImplementedError("the nyuv2 dataset is not ported yet (ROADMAP item 12)")
     if name not in DATASETS:
         raise ValueError(f"unknown dataset {name}")
     return DATASETS[name]
@@ -74,7 +73,8 @@ def split_paths(cfg: Options) -> tuple[str, str]:
     if cfg.dataset == "kitti_odom":
         return (os.path.join(SPLITS_DIR, "kitti", "odom", "{}_files.txt"),
                 os.path.join(SPLITS_DIR, "kitti", "odom", "{}_files_09.txt"))
-    path = os.path.join(SPLITS_DIR, "cityscapes", "{}_files.txt")
+    path = os.path.join(SPLITS_DIR, "nyuv2" if cfg.dataset == "nyuv2" else "cityscapes",
+                        "{}_files.txt")
     return path, path
 
 
@@ -211,7 +211,8 @@ class Trainer:
                 ckpt_lib.load_vfi(path, self.bundle, role)
                 return
         logging.warning("Frozen VFI weights missing (%s.pth): %s keeps random init; "
-                        "train IFRNet first with train_vfi.py", stem, role)
+                        "train IFRNet first with python -m mono_vifi_tpu_torch.train_vfi",
+                        stem, role)
 
     # ------------------------------------------------------------ ckpt mgmt
     def load_ckpt(self):
@@ -246,6 +247,8 @@ class Trainer:
         if self.cfg.dataset in ("kitti", "cityscapes") and self.gt_depths is not None:
             self.test(epoch, multi_frame=False)
             self.test(epoch, multi_frame=True)
+        elif self.cfg.dataset == "nyuv2":
+            self.test_nyuv2(epoch)
         self.save_model(epoch, ep_end=True)
 
     def noise_seed(self, step: int) -> int:
@@ -344,6 +347,23 @@ class Trainer:
         if self.writer is not None:
             for k, v in res.items():
                 self.writer.add_scalar(f"{tag}/{k}", v, epoch)
+        return res
+
+    def test_nyuv2(self, epoch: int) -> dict:
+        """Per-epoch single-frame NYUv2 evaluation over the test split's
+        `.h5` samples, one at a time (reference train.py:305-354)."""
+        logging.info("NYUv2 eval at epoch %d", epoch)
+        ds = self.test_dataset
+        preds, gts = [], []
+        for i in range(len(ds)):
+            rgb, depth = ds.load_test_item(i)
+            img = prepare_batch({"img": rgb[None]}, self.device)["img"]
+            sd, _ = disp_to_depth(single_frame_disp(self.bundle, img), self.cfg.min_depth,
+                                  self.cfg.max_depth)
+            preds.append(sd[0, 0].cpu().numpy())
+            gts.append(depth)
+        res = evaluation.evaluate_nyuv2(np.stack(preds), gts, printer=logging.info)
+        self.eval_results[epoch, "nyuv2"] = res
         return res
 
 

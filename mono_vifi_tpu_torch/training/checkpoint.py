@@ -9,8 +9,12 @@ and the JAX package's `load_reference_pth` read:
     `batch_idx`, `step_in_total`, `height`, `width`, `use_stereo`; a
     mid-epoch save every save_frequency batches gives step-granular resume
     together with the stateful sampler;
-  - `models/model_{ep}.pth`: the role state_dicts and the scalars only.
-Both are written to a temporary file that `os.replace` puts in place.
+  - `models/model_{ep}.pth`: the role state_dicts and the scalars only;
+  - the VFI trainer's `ckpt.pth`: `VFI` (IFRNet's state_dict, which
+    `load_vfi` reads as a frozen VFI), `optimizer`, `epoch`, `batch_idx`,
+    `step_in_total`, `vfi_scale`, `height`, `width` (the JAX
+    train_vfi.py:155-171 payload).
+Each is written to a temporary file that `os.replace` puts in place.
 
 Loading takes two formats:
   - a reference `.pth` dict keyed by role (as above, or a released
@@ -18,9 +22,11 @@ Loading takes two formats:
     modules use the reference key schema, so the state_dicts load as they
     are;
   - a weight-only `.pkl` snapshot of the JAX package (`save_weights`: numpy
-    parameter trees per role, an optional `batch_stats`, and scalars), which
-    goes through the port's Flax -> port converter. It is unpickled by an
-    unpickler that admits numpy arrays and builtins only.
+    parameter trees per role, an optional `batch_stats`, and scalars), or a
+    JAX train_vfi.py `ckpt.pkl` (its `params["VFI"]`), which goes through
+    the port's Flax -> port converter. It is unpickled by an unpickler that
+    admits numpy arrays and builtins, and reads the optax and Flax state
+    classes of a `ckpt.pkl` as inert tuples without importing them.
 
 Loading is key-intersection tolerant like the reference (train.py:1149-1154):
 roles the bundle lacks are ignored, and keys that are missing or of another
@@ -97,15 +103,21 @@ def load_reference_pth(path: str, bundle, multi_frame: bool = False) -> list[str
     return load_roles(bundle, role_sds)
 
 
-def load_vfi(path: str, bundle, role: str = "vfi_test") -> list[str]:
-    """Load a frozen IFRNet into `bundle.<role>` (`vfi_test` or `vfi_train`)
-    from a reference IFRNet `.pth` (its `VFI` entry) or a JAX weight-only
-    `.pkl` holding `params["VFI"]`."""
+def read_vfi(path: str) -> dict:
+    """IFRNet's state_dict from a `.pth` (a reference IFRNet file or the VFI
+    trainer's checkpoint: its `VFI` entry; else a bare state_dict) or a JAX
+    `.pkl` holding `params["VFI"]` (a weight-only snapshot or a
+    train_vfi.py `ckpt.pkl`)."""
     if path.endswith(".pth"):
-        sd = torch.load(path, map_location="cpu", weights_only=True)["VFI"]
-    else:
-        sd = convert.ifrnet(load_weights_pkl(path)["params"]["VFI"])
-    return load_roles(bundle, {role: sd})
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        return ckpt["VFI"] if "VFI" in ckpt else ckpt
+    return convert.ifrnet(load_weights_pkl(path)["params"]["VFI"])
+
+
+def load_vfi(path: str, bundle, role: str = "vfi_test") -> list[str]:
+    """Load a frozen IFRNet (`read_vfi`) into `bundle.<role>` (`vfi_test` or
+    `vfi_train`)."""
+    return load_roles(bundle, {role: read_vfi(path)})
 
 
 def _scalars(cfg) -> dict:
@@ -137,6 +149,26 @@ def save_checkpoint(path: str, state, cfg, epoch: int, batch_idx: int = 0) -> No
     }, path)
 
 
+def save_vfi_checkpoint(path: str, state, cfg, epoch: int, batch_idx: int = 0) -> None:
+    """The VFI trainer's resumable checkpoint (see the module docstring)."""
+    _save({
+        "VFI": {k: v.detach().cpu() for k, v in state.module.state_dict().items()},
+        "optimizer": state.optimizer.state_dict(), "epoch": epoch, "batch_idx": batch_idx,
+        "step_in_total": int(state.step), "vfi_scale": cfg.vfi_scale,
+        "height": cfg.height, "width": cfg.width,
+    }, path)
+
+
+def load_vfi_checkpoint(path: str, state) -> tuple[int, int]:
+    """Resume a `VFITrainState` from `save_vfi_checkpoint`'s file: weights
+    (tolerant), optimizer state and update count; -> (epoch, batch_idx)."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    load_roles(state, {"module": ckpt["VFI"]})
+    state.optimizer.load_state_dict(ckpt["optimizer"])
+    state.step = int(ckpt["step_in_total"])
+    return int(ckpt["epoch"]), int(ckpt["batch_idx"])
+
+
 def load_checkpoint(path: str, state) -> tuple[int, int]:
     """Resume `state` from a `save_checkpoint` file: the role weights and
     BatchNorm buffers (tolerant), the optimizer state and the update count;
@@ -161,19 +193,41 @@ _BUILTINS = {"dict", "list", "tuple", "set", "frozenset", "int", "float", "bool"
              "str", "bytes", "bytearray", "complex"}
 
 
+class _InertState(tuple):
+    """What an optax or Flax state class of a JAX `ckpt.pkl` unpickles to:
+    its fields as a plain tuple (these classes are NamedTuples pickled as
+    cls.__new__(cls, *fields)); nothing of optax or Flax is imported."""
+
+    def __new__(cls, *fields):
+        return tuple.__new__(cls, fields)
+
+
+def _frozen_dict(*args):
+    """Flax's FrozenDict pickles as FrozenDict(dict): read it as the dict."""
+    return dict(*args)
+
+
 class _NumpyUnpickler(pickle.Unpickler):
-    """Admits numpy arrays, numpy scalars and builtin containers only."""
+    """Admits numpy arrays, numpy scalars and builtin containers, and reads
+    the optax and Flax `*State` classes and `FrozenDict` inertly; refuses
+    every other global."""
 
     def find_class(self, module, name):
         if (module, name) in _NUMPY_GLOBALS or (
             module == "numpy.dtypes" and name.endswith("DType")
         ) or (module == "builtins" and name in _BUILTINS):
             return super().find_class(module, name)
+        if module.split(".")[0] in ("optax", "flax"):
+            if name.endswith("State"):
+                return _InertState
+            if name == "FrozenDict":
+                return _frozen_dict
         raise pickle.UnpicklingError(f"refused to load {module}.{name}")
 
 
 def load_weights_pkl(path: str) -> dict:
-    """Read a JAX `save_weights` snapshot with the restricted unpickler."""
+    """Read a JAX `save_weights` snapshot or train_vfi.py `ckpt.pkl` with
+    the restricted unpickler."""
     with open(path, "rb") as f:
         return _NumpyUnpickler(f).load()
 

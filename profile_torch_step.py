@@ -8,7 +8,13 @@ as a user runs it, with random weights from a seed; `--path single` and
 `--path multi` build the inference paths chip_smoke.py drives (the config's
 backbone at 640x192 in f32 with TF32 off, frozen IFRNet-S, batch 4 of uint8
 frames from a numpy seed, through the evaluation entry modules'
-`predict_disps` with flip post-processing and `predict_disps_mf`). Each runs 2 warm-up calls, times 5
+`predict_disps` with flip post-processing and `predict_disps_mf`); `--path vfi`
+builds the VFI training step of `--config` (default
+configs/vfi/IFRNet_L_KITTI.txt, chip_smoke.py's phase 10: IFRNet-L, batch 16,
+the 160x576 crop, bf16) on a batch of frames from a numpy seed, and also
+times the plain feature warps at the step's three levels, forward and
+forward + backward (CUDA events), as a share of the step's device time. Each
+runs 2 warm-up calls, times 5
 with the host clock, then traces 3 with torch.profiler and prints per call:
 the device's busy share (kernel time over wall time), the kernel time by
 category, the port's kernels, and the 20 kernels that take the most time.
@@ -19,7 +25,8 @@ the `__global__` functions in the checkout's `mono_vifi_tpu_torch/csrc`, so
 the script reads any version of the port. Run from the repository root on
 a machine with a CUDA device:
 
-    python3 profile_torch_step.py [--path train|single|multi] [--config FILE]
+    python3 profile_torch_step.py [--path train|single|multi|vfi] [--config FILE]
+        [--backbone NAME]
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from chip_smoke import BI, H, W, make_batch
+from chip_smoke import BI, H, VFI_CROP, W, make_batch
 
 # a kernel as the profiler names it: `[void ](anonymous namespace)::<name>...`
 # (the return type shows on templates only)
@@ -101,12 +108,62 @@ def inference_call(dev, backbone: str, multi: bool):
     return lambda: ED.predict_disps(args, bundle, [batch["color_0"]]), BI
 
 
+def vfi_call(dev, cfg):
+    """-> (one VFI training step, samples per call)."""
+    from mono_vifi_tpu_torch.training import vfi as V
+
+    state = V.create_vfi_state(cfg, seed=0, steps_per_epoch=1000, device=dev)
+    step = V.make_vfi_train_step(cfg.clip_grad)
+    rng = np.random.default_rng(3)
+    n = cfg.batch_size
+    batch = {k: torch.from_numpy(rng.integers(0, 256, (n,) + VFI_CROP + (3,), np.uint8)).to(dev)
+             for k in ("img0", "img1", "img2")}
+    batch["embt"] = torch.full((n,), 0.5, device=dev)
+    return lambda: step(state, batch), n
+
+
+def feature_warp_ms(dev, cfg) -> list[tuple[tuple, float, float]]:
+    """The plain feature warps of IFRNet's decoders 3-1 at the VFI crop
+    (both frames' features in one call, as models/ifrnet.py calls them, in
+    the compute dtype; the flows f32): -> [(shape, forward ms, forward +
+    backward ms)] by CUDA events."""
+    from chip_smoke import time_ms
+    from mono_vifi_tpu_torch.models.ifrnet import PYRAMID_CHANNELS
+    from mono_vifi_tpu_torch.ops.sampling import warp_planar
+    from mono_vifi_tpu_torch.training.factory import compute_dtype
+
+    dt = compute_dtype(cfg)
+    h, w = VFI_CROP[0], VFI_CROP[1] // 2  # the encoder's input: (1.0, 0.5) of the crop
+    out = []
+    for lvl, c in enumerate(PYRAMID_CHANNELS[cfg.vfi_scale][:3]):
+        shape = (2 * cfg.batch_size, c, h >> (lvl + 1), w >> (lvl + 1))
+        img = torch.randn(shape, device=dev, dtype=dt, requires_grad=True)
+        flow = torch.randn((shape[0], 2) + shape[2:], device=dev, requires_grad=True)
+
+        def fwd():
+            return warp_planar(img, flow)
+
+        def fwd_bwd():
+            o = fwd()
+            torch.autograd.grad(o, (img, flow), torch.ones_like(o))
+
+        with torch.no_grad():
+            f_ms = time_ms(fwd)
+        out.append((shape, f_ms, time_ms(fwd_bwd)))
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=("train", "single", "multi"), default="train")
-    ap.add_argument("--config", default="configs/resnet18/ResNet18_KITTI_MR.txt")
+    ap.add_argument("--path", choices=("train", "single", "multi", "vfi"), default="train")
+    ap.add_argument("--config", default=None)
+    ap.add_argument("--backbone", default=None,
+                    help="the config's backbone replaced (ResNet50 has no config file)")
     args = ap.parse_args()
     path = args.path
+    if args.config is None:
+        args.config = ("configs/vfi/IFRNet_L_KITTI.txt" if path == "vfi"
+                       else "configs/resnet18/ResNet18_KITTI_MR.txt")
     dev = torch.device("cuda")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -114,15 +171,21 @@ def main() -> None:
     ).stdout.strip().splitlines()[0])
     from mono_vifi_tpu_torch.config import parse_options
 
-    cfg = parse_options(["-c", args.config, "--weights_init", "scratch", "--device", "cuda"])
+    cfg = parse_options(["-c", args.config, "--weights_init", "scratch", "--device", "cuda"]
+                        + (["--backbone", args.backbone] if args.backbone else []))
     if (cfg.height, cfg.width) != (H, W):
         raise ValueError(f"{args.config}: the profile runs at {W}x{H}")
-    print(f"{args.config}: {cfg.backbone}, batch {cfg.batch_size}")
-    if path == "train":
+    if path == "vfi":
+        print(f"{args.config}: IFRNet-{cfg.vfi_scale}, batch {cfg.batch_size}, crop "
+              f"{VFI_CROP}, {cfg.compute_dtype}")
+        call, n = vfi_call(dev, cfg)
+    elif path == "train":
+        print(f"{args.config}: {cfg.backbone}, batch {cfg.batch_size}")
         call, n = train_call(dev, cfg)
     else:
+        print(f"{args.config}: {cfg.backbone}, batch {cfg.batch_size}")
         call, n = inference_call(dev, cfg.backbone, path == "multi")
-    unit = "step" if path == "train" else "batch"
+    unit = "step" if path in ("train", "vfi") else "batch"
     for _ in range(2):
         call()
     torch.cuda.synchronize()
@@ -133,7 +196,7 @@ def main() -> None:
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) / 5 * 1e3
     print(f"{path} untraced: {wall:.1f} ms/{unit}, {n / wall * 1e3:.2f} "
-          f"{'samples' if path == 'train' else 'frames'}/s, peak memory "
+          f"{'frames' if unit == 'batch' else 'samples'}/s, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     calls = 3
@@ -167,6 +230,15 @@ def main() -> None:
     print(f"top kernels (ms/{unit}):")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:20]:
         print(f"  {ms:9.3f}  {ms / busy:6.1%}  {name[:140]}")
+    if path == "vfi":
+        total_f = total_fb = 0.0
+        for shape, f_ms, fb_ms in feature_warp_ms(dev, cfg):
+            total_f, total_fb = total_f + f_ms, total_fb + fb_ms
+            print(f"plain feature warp {shape}: forward {f_ms:.3f} ms, forward + backward "
+                  f"{fb_ms:.3f} ms (backward {fb_ms - f_ms:.3f})")
+        print(f"plain feature warps: forward {total_f:.3f} ms/step ({total_f / busy:.1%}), "
+              f"backward {total_fb - total_f:.3f} ms/step ({(total_fb - total_f) / busy:.1%} "
+              "of the step's device time)")
 
 
 if __name__ == "__main__":

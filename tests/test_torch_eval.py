@@ -206,7 +206,8 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch, tmp_path):
         EDM.main(EDM.eval_args(small + ["--kitti_path", str(tmp_path)]))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_bundle(Options(**KW), for_training=False)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ED.main(ED.eval_args(small + ["--device", "cpu", "--nyuv2_path", str(tmp_path)]))
+    # --make3d_path reads the Make3D split's files (none here)
+    with pytest.raises(FileNotFoundError, match="Test134"):
+        ED.main(ED.eval_args(small + ["--device", "cpu", "--make3d_path", str(tmp_path)]))
     ED.main(ED.eval_args(small + ["--device", "cpu"]))  # builds, reports, evaluates nothing
     EDM.main(EDM.eval_args(small + ["--device", "cpu"]))

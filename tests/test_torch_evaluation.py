@@ -168,8 +168,12 @@ def test_training_mode_is_ported_for_kitti(kitti_dir):
 
 
 def test_training_mode_is_not_ported():
-    """NYUv2's training mode is not ported: the trainer refuses it."""
+    """Every training dataset of the JAX trainer is ported, NYUv2 included
+    (its items equal the JAX package's in tests/test_torch_readers.py); the
+    trainer refuses a dataset it does not know."""
     from mono_vifi_tpu_torch import train
+    from mono_vifi_tpu_torch.data import NYUDataset
 
-    with pytest.raises(NotImplementedError, match="item 12"):
-        train.dataset_class("nyuv2")
+    assert train.dataset_class("nyuv2") is NYUDataset
+    with pytest.raises(ValueError, match="unknown dataset"):
+        train.dataset_class("make3d")

@@ -299,5 +299,6 @@ def test_trainer_refuses_without_a_card_and_unported_datasets(monkeypatch, kitti
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         T.main(["-c", str(ROOT / "configs/resnet18/ResNet18_KITTI_MR.txt")])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        T.Trainer(Options(dataset="nyuv2", device="cpu"))
+    # Make3D is an evaluation set only: the trainer has no dataset for it
+    with pytest.raises(ValueError, match="unknown dataset make3d"):
+        T.Trainer(Options(dataset="make3d", device="cpu"))
