@@ -85,13 +85,39 @@ Phases, in order; any failure exits non-zero before the last line:
      write, test_video's table-sample launches at batch 1 (at each shape
      phase 3 checked for it), its multi-frame disparities with the kernels
      against every plain version within 1e-5;
- 12. the whole run's time, one JSON line describing every kernel (each
+ 12. multi-card training, two ranks sharing the card (mono_vifi_tpu_torch.
+     parallel.spawn_local on cuda:0 with gloo: NCCL refuses two ranks on one
+     card; a file rendezvous): each rank takes two steps of
+     ResNet18_KITTI_MR.txt at local batch 5 and of IFRNet_L_KITTI.txt at
+     local batch 8 (full width, random weights from a seed; smooth frames,
+     rank r holding rows r*b:(r+1)*b of the global batch, the global
+     draws cut to its rows), in f32 and in the configs' bf16, against one
+     process at batch 10 and 16 on the same weights, batches and draws
+     (its step 2 from rank 0's state after step 1): loss terms and
+     gradient norm at each step, every BatchNorm buffer and each module's
+     parameters after step 2, rel 1e-3 (the bf16 gradient norm 3e-3: see
+     DDP_TOL), equal across the ranks; each kernel launched on both bf16
+     paths (by shape on rank 0), ms/step and peak memory per rank; then a
+     group of one rank at the whole bf16 batch, its step 1 against the two
+     ranks' (rel 1e-3) and the single process's (printed);
+ 13. the real `Trainer` with `distributed` at a world of 1 on NCCL (the env
+     rendezvous) against the plain one-card `Trainer` from the same seed
+     on phase 7's tree: 3 steps and a checkpoint after steps 2 and 3, in
+     f32 and in bf16, each NCCL step from the plain trainer's state before
+     it: the losses step for step rel 1e-5 (f32) and 1e-3 (bf16), ms/step
+     of each;
+ 14. the ResNet18 step with `encoder_remat` against the same step without
+     it on the same weights, batch and draws: loss terms, gradient norm and
+     BatchNorm buffers rel 1e-3, the statistics moved once; ms/step and peak
+     memory each way;
+ 15. the whole run's time, one JSON line describing every kernel (each
      variant's launches those of its own path), then the result line.
 
-Phase 3 also checks and times every kernel at the shapes phases 8-11 give
+Phase 3 also checks and times every kernel at the shapes phases 8-12 give
 it (the splat at channel groups of 5 and 9, the table sample bit for bit at
 18 to 2048 channels and at batch 1, the sample and its grid gradient at the
-VFI crops), each variant naming its "phase".
+VFI crops, every kernel at the two-rank step's local batch of 5 and the
+VFI step's of 8), each variant naming its "phase".
 """
 
 from __future__ import annotations
@@ -120,6 +146,13 @@ BACKBONE_STEPS = (
 )
 RESNET50_LEVELS = ((64, H // 2, W // 2), (256, H // 4, W // 4), (512, H // 8, W // 8),
                    (1024, H // 16, W // 16), (2048, H // 32, W // 32))
+RESNET18_LEVELS = ((64, H // 2, W // 2), (64, H // 4, W // 4), (128, H // 8, W // 8),
+                   (256, H // 16, W // 16), (512, H // 32, W // 32))
+# phase 12: two ranks sharing the card, each at half of the ResNet18 step's
+# batch and of the VFI step's; phase 3 checks the kernels at their shapes
+DDP_STEP, DDP_VFI = "two-rank step", "two-rank VFI step"
+DDP_B, DDP_VFI_B = B // 2, 16 // 2
+KERNEL_STEPS = BACKBONE_STEPS + ((DDP_STEP, None, DDP_B, RESNET18_LEVELS),)
 # the multi-frame inference of each other backbone (batch BI, f32): (label,
 # backbone, its levels, whether single-frame inference runs too)
 BACKBONE_INFERENCE = (
@@ -134,8 +167,8 @@ VFI_STEP = "VFI step"
 VFI_B, VFI_CROP, VFI_CROP_CS = 16, (160, 576), (176, 480)
 VFI_SAVE = 4  # phase 10's save_frequency: a mid-epoch checkpoint after step 5
 TEST_VIDEO = "test_video"
-EXTRA_PHASES = [label for label, *_ in BACKBONE_STEPS + BACKBONE_INFERENCE] + [
-    VFI_STEP, TEST_VIDEO]
+EXTRA_PHASES = [label for label, *_ in KERNEL_STEPS + BACKBONE_INFERENCE] + [
+    VFI_STEP, TEST_VIDEO, DDP_VFI]
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_FLOP_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 
@@ -247,12 +280,13 @@ def kernel_phase(device):
         return img, gx.contiguous(), gy.contiguous()
 
     variants = []
-    sample_cases = [(B, None)] + [(b, label) for label, _, b, _ in BACKBONE_STEPS]
+    sample_cases = [(B, None)] + [(b, label) for label, _, b, _ in KERNEL_STEPS]
     # the VFI step's image warps, both frames of the batch in one launch: at
     # the KITTI crop (phase 10) and at the Cityscapes crop
     # (configs/vfi/IFRNet_L_CS.txt; no phase runs it)
     vfi_cases = [(2 * VFI_B, VFI_CROP, "VFI training image warps, 2B frames", VFI_STEP),
-                 (2 * VFI_B, VFI_CROP_CS, None, None)]
+                 (2 * VFI_B, VFI_CROP_CS, None, None),
+                 (2 * DDP_VFI_B, VFI_CROP, "VFI training image warps, 2B frames", DDP_VFI)]
     for n, c, mode, td, path, phase, hw in [
         (12 * b, 3, "border", torch.bfloat16, "photometric warp, 6B targets x 2 sources", ph,
          (H, W)) for b, ph in sample_cases
@@ -325,7 +359,7 @@ def kernel_phase(device):
             {"phase": phase} if phase else {})
 
     for k, n, phase in [(12, 12 * B, None)] + [(k, k * b, label)
-                                               for label, _, b, _ in BACKBONE_STEPS
+                                               for label, _, b, _ in KERNEL_STEPS
                                                for k in (12, 6)]:
         img, gx, gy = sample_inputs(n, 3, "border")
         variants.append(sample_bwd_case(img, gx, gy, stack_path[k], phase))
@@ -348,7 +382,7 @@ def kernel_phase(device):
     x = torch.rand((N, 3, H, W), generator=gen, device=device)
     y = (x + 0.1 * torch.randn((N, 3, H, W), generator=gen, device=device)).clamp(0, 1)
     variants = []
-    stacks = [(k * b, label) for label, _, b, _ in BACKBONE_STEPS for k in (6, 3)]
+    stacks = [(k * b, label) for label, _, b, _ in KERNEL_STEPS for k in (6, 3)]
     for n, h, w, use_ssim, phase in (
             [(N, H, W, True, None), (3 * B, H, W, True, None), (8, 187, 629, True, None),
              (8, 3, W, True, None), (8, H, 3, True, None), (N, H, W, False, None)]
@@ -470,9 +504,9 @@ def kernel_phase(device):
                "mono_vifi_tpu/ops/pallas/splat.py:77")
     del ctb
 
-    # the other backbones' fusion levels (their step's 6b uses of 3b planes,
-    # channel groups of 5 and 9 among them)
-    for phase, _, b, levels in BACKBONE_STEPS:
+    # the other backbones' and the two-rank step's fusion levels (6b uses of
+    # 3b planes, channel groups of 5 and 9 among them)
+    for phase, _, b, levels in KERNEL_STEPS:
         ids_b = torch.tensor([q * b + j for q in TABLE_USES for j in range(b)],
                              dtype=torch.int32, device=device)
         for level, (C, h, w) in enumerate(levels):
@@ -486,7 +520,7 @@ def kernel_phase(device):
                        out_dtype=torch.bfloat16, phase=phase)
     del ctb
 
-    for b, phase in [(B, None)] + [(b, label) for label, _, b, _ in BACKBONE_STEPS]:
+    for b, phase in [(B, None)] + [(b, label) for label, _, b, _ in KERNEL_STEPS]:
         angle = (torch.rand((3 * b,), generator=gen, device=device) - 0.5) * 10.0
         gx, gy = rotation_grid(-angle, H, W)
         f = [t.contiguous() for t in sampling.zeros_factors((H, W), gx, gy)]
@@ -505,8 +539,7 @@ def kernel_phase(device):
     # level 0 of the step with a grid far out of range; each bit for bit
     from mono_vifi_tpu_torch.ops.cuda import fwarp as FW
 
-    levels = ((64, H // 2, W // 2), (64, H // 4, W // 4), (128, H // 8, W // 8),
-              (256, H // 16, W // 16), (512, H // 32, W // 32))
+    levels = RESNET18_LEVELS
     variants = []
     cases = [(B, TABLE_USES, torch.bfloat16, C, h, w, "smooth", "training step")
              for C, h, w in levels]
@@ -515,7 +548,7 @@ def kernel_phase(device):
     cases += [(N_TEST, (0, 2), torch.bfloat16, C, h, w, "smooth", DRIVER_EVAL)
               for C, h, w in levels]
     cases += [(b, TABLE_USES, torch.bfloat16, C, h, w, "smooth", label)
-              for label, _, b, bl in BACKBONE_STEPS for C, h, w in bl]
+              for label, _, b, bl in KERNEL_STEPS for C, h, w in bl]
     cases += [(BI, (0, 2), torch.float32, C, h, w, "smooth", label)
               for label, _, bl, _ in BACKBONE_INFERENCE for C, h, w in bl]
     cases += [(1, (0, 2), torch.float32, C, h, w, "smooth", TEST_VIDEO) for C, h, w in levels]
@@ -1124,6 +1157,454 @@ def entries_phase(card: str, tmp: str):
     return launches, shapes
 
 
+def smooth_frames(rng, n: int, h: int, w: int, pan: int = 0) -> np.ndarray:
+    """n uint8 frames (n, h, w, 3): a smooth colour field, each frame panned
+    `pan` pixels from the last, plus noise in [0, 16) (phase 7's synthetic
+    drive, at the step's size)."""
+    ys, xs = np.mgrid[0:h, 0:w + pan * n] / 60.0
+    ph = rng.uniform(0, 2 * np.pi, (n, 3, 2))
+    out = np.empty((n, h, w, 3), np.uint8)
+    for i in range(n):
+        field = np.stack([127.5 + 100.0 * np.sin(xs[:, pan * i:pan * i + w] + ph[i, c, 0])
+                          * np.cos(ys[:, :w] + ph[i, c, 1]) for c in range(3)], -1)
+        out[i] = field.astype(np.uint8) + rng.integers(0, 16, (h, w, 3), np.uint8)
+    return out
+
+
+def ddp_batches(device):
+    """Phase 12's global batches: the ResNet18 step's (B, smooth frames in
+    each image entry, else phase 4's) and the VFI step's (16 triplets of
+    frames panning 4 pixels, at the KITTI crop)."""
+    import torch
+
+    batch = make_batch(device, B)
+    rng = np.random.default_rng(12)
+    for k, v in batch.items():
+        if v.dtype == torch.uint8 and v.shape[-1] == 3:
+            batch[k] = torch.from_numpy(smooth_frames(rng, B, H, W)).to(device)
+    trip = np.stack([smooth_frames(rng, 3, *VFI_CROP, pan=4) for _ in range(2 * DDP_VFI_B)])
+    vfi = {f"img{i}": torch.from_numpy(np.ascontiguousarray(trip[:, i])).to(device)
+           for i in range(3)}
+    vfi["embt"] = torch.full((2 * DDP_VFI_B,), 0.5, device=device)
+    return batch, vfi
+
+
+def ddp_steps(device, cfg, batch, vfi_cfg, vfi_batch, rank: int = 0, timed: int = 0,
+              step1=None) -> dict:
+    """Phase 12's two steps of the ResNet18 step and of the VFI step (none
+    without `vfi_cfg`), from
+    seed 0, on this rank's rows of the global batches (all of them
+    alone), with the step's generator seeded per step alike on every rank;
+    each path's launches counted from 0 just before it; then `timed` more
+    steps of each on the host clock with their peak memory. The state after
+    step 1 is kept (`step1`); given one, step 2 starts from it instead.
+    -> the metrics, parameters and BatchNorm buffers after each path, its
+    launches and times."""
+    import copy
+
+    import torch
+
+    from mono_vifi_tpu_torch import parallel
+    from mono_vifi_tpu_torch.ops import cuda
+    from mono_vifi_tpu_torch.training import monovifi as M
+    from mono_vifi_tpu_torch.training import vfi as V
+
+    def rows(b, n):
+        return {k: v[rank * n:(rank + 1) * n] for k, v in b.items()}
+
+    def run(step_fn, state, module, local, metrics_of, path):
+        if parallel.active():
+            parallel.broadcast_module_(module)
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        gen = torch.Generator(device=device)
+        metrics = []
+        for s in range(2):
+            if s == 1 and step1 is None:
+                kept = {"model": copy.deepcopy(module.state_dict()),
+                        "opt": copy.deepcopy(state.optimizer.state_dict()), "step": state.step}
+            elif s == 1:
+                module.load_state_dict(step1[path]["step1"]["model"])
+                state.optimizer.load_state_dict(step1[path]["step1"]["opt"])
+                state.step = step1[path]["step1"]["step"]
+            gen.manual_seed(1000 + s)
+            metrics.append(metrics_of(step_fn(state, local, gen)))
+        torch.cuda.synchronize()
+        out = {"metrics": metrics, "launches": dict(cuda.LAUNCHES),
+               "shapes": dict(cuda.LAUNCH_SHAPES),
+               "params": {k: p.detach().cpu().clone() for k, p in module.named_parameters()
+                          if p.requires_grad},
+               "stats": {k: t.cpu().clone() for k, t in module.named_buffers()}}
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            step_fn(state, local, gen)
+        torch.cuda.synchronize()
+        out["ms"] = (time.perf_counter() - t0) / max(timed, 1) * 1e3
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        return out | ({"step1": kept} if step1 is None else {})
+
+    state = M.create_train_state(cfg, 0, steps_per_epoch=3981, device=device)
+    train_step = M.MonoViFiStep(state.bundle, device=device).make_train_step()
+    depth = run(lambda st, b, g: train_step(st, b, g), state, state.bundle,
+                rows(batch, cfg.batch_size), lambda m: {k: float(v) for k, v in m.items()},
+                "depth")
+    del state, train_step
+    torch.cuda.empty_cache()
+    if vfi_cfg is None:
+        return {"depth": depth}
+    vstate = V.create_vfi_state(vfi_cfg, 0, steps_per_epoch=1000, device=device)
+    vfi_step = V.make_vfi_train_step(vfi_cfg.clip_grad)
+    vfi = run(lambda st, b, g: vfi_step(st, b), vstate, vstate.module,
+              rows(vfi_batch, vfi_cfg.batch_size),
+              lambda m: {k: float(v) for k, v in m[0].items()}, "vfi")
+    del vstate, vfi_step
+    torch.cuda.empty_cache()
+    return {"depth": depth, "vfi": vfi}
+
+
+def ddp_configs(batch: int, vfi_batch: int, device="cuda", dtype="bfloat16"):
+    """The ResNet18 and VFI configurations at the given batches, computing
+    in `dtype` (theirs: bf16)."""
+    from mono_vifi_tpu_torch.config import parse_options
+
+    cfg = parse_options(["-c", "configs/resnet18/ResNet18_KITTI_MR.txt", "--weights_init",
+                         "scratch", "--batch_size", str(batch), "--device", str(device),
+                         "--compute_dtype", dtype])
+    vfi_cfg = parse_options(["-c", "configs/vfi/IFRNet_L_KITTI.txt", "--batch_size",
+                             str(vfi_batch), "--device", str(device), "--compute_dtype", dtype])
+    return cfg, vfi_cfg
+
+
+# phase 12's limits by compute dtype, on the relative difference of the loss
+# terms (and the PSNR), of the gradient norm, and of the BatchNorm buffers
+# and each module's parameters after step 2. In f32 the ranks and the single
+# process differ in the order of sums and the BatchNorm variance's formula.
+# In bf16 the gradient norm moves further, for two reasons (H100 80GB HBM3
+# at 700 W, PR 9's chip runs). (1) In a process group every BatchNorm2d is
+# `_GlobalBatchNorm` (f32 statistics and normalization, the output cast to
+# bf16) where the single process runs cuDNN's bf16 BatchNorm; the two round
+# the normalized activations apart, and the pose net's gradient, a
+# difference of neighbouring taps, carries that into the norm: a group of
+# ONE rank already reads 13.275215 against the single process's 13.269624
+# at step 1 (4.2e-4), and two ranks 13.275991, 5.9e-5 from one rank
+# (`ddp_phase` compares the three). (2) Each rank's convolutions round its
+# half of a weight gradient to bf16 before the all-reduce sums them, where
+# the single process rounds the whole: the VFI step, which has no
+# BatchNorm, reads 7.4e-4 and 9.6e-4 at steps 1 and 2. The ResNet18 step
+# read 4.8e-4 and 1.03e-3. The gradient norm's bf16 limit is 3e-3, about
+# three times the largest; everything else keeps 1e-3.
+DDP_TOL = {"float32": {"mean": 1e-3, "grad_norm": 1e-3, "state": 1e-3},
+           "bfloat16": {"mean": 1e-3, "grad_norm": 3e-3, "state": 1e-3}}
+
+
+def ddp_rank(out_dir: str, device: str, dtypes=tuple(DDP_TOL), vfi: bool = True) -> None:
+    """One rank of phase 12 (a process of `parallel.spawn_local`, on cuda:0
+    with gloo): its share, B / world and 16 / world, of the ResNet18 step
+    and (with `vfi`) of the VFI step in each of `dtypes`; the bf16 steps of
+    a group of two then timed; saved for the parent."""
+    import torch
+
+    from mono_vifi_tpu_torch import parallel
+    from mono_vifi_tpu_torch.ops.cuda import build
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.load()
+    rank, world = parallel.rank_and_world()
+    device = torch.device(device)
+    batch, vfi_batch = ddp_batches(device)
+    out = {}
+    for dtype in dtypes:
+        cfg, vfi_cfg = ddp_configs(B // world, 2 * DDP_VFI_B // world, device, dtype)
+        out[dtype] = ddp_steps(device, cfg, batch, vfi_cfg if vfi else None, vfi_batch, rank,
+                               timed=3 if dtype == "bfloat16" and world > 1 else 0)
+    torch.save(out, f"{out_dir}/world{world}_rank{rank}.pt")
+
+
+def rel(a, b) -> float:
+    """|a - b| over |b|: of numbers, or of vectors by their norms."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return float(torch.linalg.vector_norm((a - b).double())
+                     / max(float(torch.linalg.vector_norm(b.double())), 1e-30))
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def groups(tensors: dict, key: str) -> dict:
+    """Phase 12's units of comparison: each BatchNorm buffer alone; the
+    parameters of each top-level module (a role of the bundle, a part of
+    IFRNet) as one vector. A zero-initialized bias alone is the size of
+    the update, whose sign follows the sign of gradients near zero."""
+    import torch
+
+    if key == "stats":
+        return {k: v.float() for k, v in tensors.items()}
+    out: dict = {}
+    for k, v in tensors.items():
+        out.setdefault(k.split(".", 1)[0], []).append(v.float().reshape(-1))
+    return {k: torch.cat(v) for k, v in out.items()}
+
+
+def ddp_phase(card: str, tmp: str, device):
+    """Phase 12: two ranks share cuda:0 (gloo: NCCL refuses two ranks on one
+    card), each at half the batch of the ResNet18 step (5 of 10) and of
+    the VFI step (8 of 16), against one process at the whole batch from the
+    same weights, batches and draws, in f32 and in bf16 (the configs'):
+    the loss terms and the gradient norm at each of two steps, and after
+    them every BatchNorm buffer and the parameters of every module (norm
+    of the difference over the norm, `groups`), within DDP_TOL of the
+    single process's; every number equal across the ranks. The single
+    process takes its step 2 from rank 0's state after step 1: AdamW's
+    first update moves each weight by the learning rate in the direction of
+    its gradient's sign, so where the ranks' halves of a gradient nearly
+    cancel, a rounding of either flips it, and step 2 would compare two
+    other weights. Then a group of one rank takes the bf16 ResNet18 step
+    at the whole batch: its step 1 is held to the two ranks' within the
+    loss terms' limit, and its distance from the single process is
+    printed (DDP_TOL's comment). -> the launches of rank 0's two bf16
+    paths."""
+    import torch
+
+    from mono_vifi_tpu_torch import parallel
+
+    on = "cuda:0" if device.type == "cuda" else "cpu"
+    t0 = time.perf_counter()
+    parallel.spawn_local(ddp_rank, 2, tmp, on, device=on, backend="gloo")
+    ranks = [torch.load(f"{tmp}/world2_rank{r}.pt", map_location="cpu", weights_only=False)
+             for r in range(2)]
+    log(f"ddp: two ranks on {on} took {time.perf_counter() - t0:.1f} s with their start")
+    batch, vfi_batch = ddp_batches(device)
+    for dtype, tol in DDP_TOL.items():
+        cfg, vfi_cfg = ddp_configs(B, 2 * DDP_VFI_B, device, dtype)
+        ref = ddp_steps(device, cfg, batch, vfi_cfg, vfi_batch, step1=ranks[0][dtype])
+        for path, label in (("depth", DDP_STEP), ("vfi", DDP_VFI)):
+            name = f"ddp {label} {dtype}"
+            for s in range(2):
+                for k, v in ref[path]["metrics"][s].items():
+                    got = [r[dtype][path]["metrics"][s][k] for r in ranks]
+                    e, t = rel(got[0], v), tol["grad_norm" if k == "grad_norm" else "mean"]
+                    log(f"{name} step {s + 1} {k}: ranks {got[0]:.6f} {got[1]:.6f} one process "
+                        f"{v:.6f} rel {e:.2e} (tol {t:.0e})")
+                    if not (math.isfinite(got[0]) and e <= t and got[0] == got[1]):
+                        raise AssertionError(f"{name} step {s + 1} {k}: {got} vs {v}")
+            for key in ("stats", "params"):
+                worst, across = 0.0, 0.0
+                mine = [groups(r[dtype][path][key], key) for r in ranks]
+                for k, v in groups(ref[path][key], key).items():
+                    if k.endswith("num_batches_tracked"):
+                        if not all(torch.equal(m[k], v) for m in mine):
+                            raise AssertionError(f"{name} {k} differs")
+                        continue
+                    worst = max(worst, rel(mine[0][k], v))
+                    across = max(across, rel(mine[1][k], mine[0][k]))
+                log(f"{name} {key} after step 2 ({len(ref[path][key])} tensors): rank 0 vs one "
+                    f"process worst rel {worst:.2e}, rank 1 vs rank 0 {across:.2e} "
+                    f"(tol {tol['state']:.0e})")
+                if not (worst <= tol["state"] and across <= tol["state"]):
+                    raise AssertionError(f"{name} {key} differ: {worst}, {across}")
+        if dtype == "bfloat16":
+            one = ref["depth"]["metrics"][0]
+    t0 = time.perf_counter()
+    parallel.spawn_local(ddp_rank, 1, tmp, on, ("bfloat16",), False, device=on,
+                         backend="gloo")
+    world1 = torch.load(f"{tmp}/world1_rank0.pt", map_location="cpu", weights_only=False)
+    log(f"ddp: one rank on {on} took {time.perf_counter() - t0:.1f} s with its start")
+    for k, v in world1["bfloat16"]["depth"]["metrics"][0].items():
+        two = ranks[0]["bfloat16"]["depth"]["metrics"][0][k]
+        e, t = rel(two, v), DDP_TOL["bfloat16"]["mean"]
+        log(f"ddp {DDP_STEP} bfloat16 step 1 {k}: a group of one rank {v:.6f}, two ranks "
+            f"{two:.6f} rel {e:.2e} (tol {t:.0e}); one process without a group {one[k]:.6f} "
+            f"rel {rel(v, one[k]):.2e}")
+        if not (math.isfinite(v) and e <= t):
+            raise AssertionError(f"ddp one rank vs two, step 1 {k}: {v} vs {two}")
+    for path, label in (("depth", DDP_STEP), ("vfi", DDP_VFI)):
+        for r, out in enumerate(ranks):
+            o = out["bfloat16"][path]
+            log(f"ddp {label} bfloat16 rank {r} ({card}): {o['ms']:.1f} ms/step with the other "
+                f"rank on the same card (no throughput figure), peak memory "
+                f"{o['peak_gib']:.2f} GiB; launches over the 2 steps {o['launches']}")
+        log(f"ddp {label} bfloat16: launches by shape on rank 0:")
+        for (name, shape), count in sorted(ranks[0]["bfloat16"][path]["shapes"].items()):
+            log(f"  {name} at {shape}: {count}")
+    depth, vfi = ranks[0]["bfloat16"]["depth"], ranks[0]["bfloat16"]["vfi"]
+    missing = [k for k, v in depth["launches"].items() if v <= 0]
+    missing += [k for k in ("bilinear_sample", "bilinear_sample_bwd") if vfi["launches"][k] <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the two-rank paths: {missing}")
+    return {DDP_STEP: (depth["launches"], depth["shapes"]),
+            DDP_VFI: (vfi["launches"], vfi["shapes"])}
+
+
+# phase 13's limits on the losses, by compute dtype. Each step of the NCCL
+# trainer starts from the plain trainer's state before that step: AdamW's
+# first update moves each weight by the learning rate in the direction of
+# its gradient's sign, so from step 2 on two free runs compare other weights
+# (bf16 on an H100 80GB HBM3 at 700 W: 1.65e-4, 5.8e-4, 7.3e-4 at steps 1-3
+# of two free runs, PR 9's first runs). In f32 the two trainers then differ only in the BatchNorm's
+# arithmetic (`_GlobalBatchNorm`, sums of x and x^2, against cuDNN) and the
+# order of sums; in bf16 they also round the BatchNorm's output apart
+# (DDP_TOL's comment).
+NCCL1_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
+
+
+def nccl1_phase(card: str, tmp: str, device, extra_args=()) -> None:
+    """Phase 13: the real `Trainer` with `distributed` at a world of 1 on
+    NCCL (the env rendezvous as torchrun sets it) against the plain
+    one-card `Trainer`, from the same seed on phase 7's synthetic tree:
+    3 steps with a checkpoint after steps 2 and 3, in f32 and in the
+    config's bf16, each step of the NCCL trainer from the plain one's state
+    before it; the losses step for step within NCCL1_TOL; ms/step of each. (`extra_args` cut the
+    configuration for a rehearsal on the CPU, where the backend is
+    gloo.)"""
+    import copy
+    import dataclasses
+    import os
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from mono_vifi_tpu_torch import parallel
+    from mono_vifi_tpu_torch import train as T
+    from mono_vifi_tpu_torch.config import ENV_RENDEZVOUS, parse_options
+
+    splits = os.path.join(tmp, "splits")
+    lines = open(os.path.join(splits, "kitti", "smoke", "train_files.txt")).read().split("\n")
+    os.makedirs(os.path.join(splits, "kitti", "nccl1"))
+    with open(os.path.join(splits, "kitti", "nccl1", "train_files.txt"), "w") as f:
+        f.write("\n".join(lines[:3 * B]))
+    T.SPLITS_DIR = splits
+    cfg = parse_options([
+        "-c", "configs/resnet18/ResNet18_KITTI_MR.txt", "--data_path", os.path.join(tmp, "kitti"),
+        "--log_dir", os.path.join(tmp, "nccl1_logs"), "--split", "nccl1", "--eval_split", "eigen",
+        "--num_epochs", "1", "--save_frequency", "1", "--log_frequency", "1",
+        "--weights_init", "scratch", "--device", str(device), "--resume", "False",
+        *extra_args,
+    ])
+
+    def share(t, states: dict, keep: bool) -> None:
+        """Before each step (where the trainer seeds its draws) keep the
+        trainer's state, or take the kept one of the same step."""
+        seed = t.noise_seed
+
+        def at(step: int) -> int:
+            if keep:
+                states[step] = (copy.deepcopy(t.bundle.state_dict()),
+                                copy.deepcopy(t.state.optimizer.state_dict()))
+            else:
+                t.bundle.load_state_dict(states[step][0])
+                t.state.optimizer.load_state_dict(states[step][1])
+            if device.type == "cuda":  # the copies stay out of the step's time
+                torch.cuda.synchronize()
+            return seed(step)
+
+        t.noise_seed = at
+
+    for dtype, tol in NCCL1_TOL.items():
+        runs, states = {}, {}
+        for label, distributed in (("plain", False), ("nccl", True)):
+            if distributed:
+                with socket.socket() as sock:
+                    sock.bind(("127.0.0.1", 0))
+                    port = sock.getsockname()[1]
+                os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                                  MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+            t = T.Trainer(dataclasses.replace(cfg, exp_name=f"{label}_{dtype}",
+                                              distributed=distributed, compute_dtype=dtype))
+            try:
+                backend = dist.get_backend() if parallel.active() else None
+                if distributed and (backend != parallel.default_backend(device) or t.world != 1):
+                    raise AssertionError(f"nccl1: backend {backend}, world {t.world}")
+                share(t, states, keep=not distributed)
+                t.run_epoch(0)
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                saved = torch.load(t.ckpt_path, map_location="cpu", weights_only=True)
+                runs[label] = ([h["loss"] for h in t.history], [h["step_s"] for h in t.history],
+                               (saved["epoch"], saved["batch_idx"], saved["step_in_total"]))
+                t.close()
+            finally:
+                vars(t).pop("noise_seed", None)  # `share`'s closure holds the trainer
+                if parallel.active():
+                    dist.destroy_process_group()
+                for k in ENV_RENDEZVOUS:
+                    os.environ.pop(k, None)
+            del t
+        states.clear()
+        for label, (losses, step_s, at) in runs.items():
+            log(f"nccl1 {label} Trainer {dtype} ({card}): losses {losses}; step "
+                f"{[round(x * 1e3, 1) for x in step_s]} ms (steps 2-3: "
+                f"{np.mean(step_s[1:]) * 1e3:.1f} ms/step); last checkpoint at {at}")
+            if len(losses) != 3 or at != (0, 3, 3):
+                raise AssertionError(f"nccl1 {label}: {len(losses)} steps, checkpoint at {at}")
+        for s, (a, b) in enumerate(zip(runs["nccl"][0], runs["plain"][0])):
+            e = rel(a, b)
+            log(f"nccl1 {dtype} step {s + 1} (from the plain state): loss NCCL {a:.6f} "
+                f"plain {b:.6f} rel {e:.2e} (tol {tol:.0e})")
+            if not (math.isfinite(a) and e <= tol):
+                raise AssertionError(f"nccl1 {dtype} step {s + 1}: loss {a} vs {b}")
+
+
+def remat_phase(card: str, device) -> None:
+    """Phase 14: the ResNet18 step with `encoder_remat` against the same
+    step without it, from the same weights, batch and draws: loss terms and
+    gradient norm rel 1e-3, every BatchNorm buffer rel 1e-3 of the no-remat
+    step's with `num_batches_tracked` moved once; then 2 warm-up and 3
+    timed steps each way, ms/step and peak memory."""
+    import dataclasses
+
+    import torch
+
+    from mono_vifi_tpu_torch.training import monovifi as M
+    from mono_vifi_tpu_torch.training.optim import global_norm
+
+    cfg, _ = ddp_configs(B, 2 * DDP_VFI_B, device)
+    batch = make_batch(device, B)
+    out = {}
+    for remat in (False, True):
+        state = M.create_train_state(dataclasses.replace(cfg, encoder_remat=remat), 0,
+                                     steps_per_epoch=3981, device=device)
+        step = M.MonoViFiStep(state.bundle, device=device)
+        gen = torch.Generator(device=device).manual_seed(7)
+        noise = step.draw_noise(B, H, W, gen)
+        before = {k: t.clone() for k, t in state.bundle.named_buffers()}
+        loss, metrics = step.loss_fn(batch, noise=noise)
+        loss.backward()
+        gnorm = float(global_norm([p.grad for p in state.params if p.grad is not None]))
+        terms = {k: float(v.detach()) for k, v in metrics.items()} | {"grad_norm": gnorm}
+        stats = {k: t.clone() for k, t in state.bundle.named_buffers()}
+        moved = {int(stats[k] - before[k]) for k in stats if k.endswith("num_batches_tracked")}
+        train_step = step.make_train_step()
+        for _ in range(2):
+            train_step(state, batch, gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            train_step(state, batch, gen)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / 3 * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        out[remat] = (terms, stats, moved, ms, peak)
+        log(f"remat {remat} ({card}): {ms:.1f} ms/step, peak memory {peak:.2f} GiB; one step "
+            f"moved num_batches_tracked by {sorted(moved)}")
+        del state, step, train_step
+        torch.cuda.empty_cache()
+    ref, got = out[False], out[True]
+    for k, v in ref[0].items():
+        e = rel(got[0][k], v)
+        log(f"remat {k}: remat {got[0][k]:.6f} no remat {v:.6f} rel {e:.2e} (tol 1e-3)")
+        if not (math.isfinite(got[0][k]) and e <= 1e-3):
+            raise AssertionError(f"remat {k}: {got[0][k]} vs {v}")
+    worst = max(rel(got[1][k].float(), v.float()) for k, v in ref[1].items()
+                if not k.endswith("num_batches_tracked"))
+    log(f"remat: BatchNorm buffers worst rel {worst:.2e} (tol 1e-3); memory saved "
+        f"{ref[4] - got[4]:.2f} GiB, time added {got[3] - ref[3]:.1f} ms/step")
+    if not (worst <= 1e-3 and got[2] == ref[2] == {1}):
+        raise AssertionError(f"remat BatchNorm statistics: rel {worst}, moved {got[2]}")
+
 def main() -> int:
     import torch
 
@@ -1170,11 +1651,22 @@ def main() -> int:
             t0 = time.perf_counter()
             extra[label] = phase(card, tmp)
             log(f"{label}: phase took {time.perf_counter() - t0:.1f} s")
+        # phases 12-14: multi-card training and encoder_remat
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        extra.update(ddp_phase(card, tmp, device))
+        log(f"ddp: phase took {time.perf_counter() - t0:.1f} s")
+        for label, phase in (("nccl1", lambda: nccl1_phase(card, tmp, device)),
+                             ("remat", lambda: remat_phase(card, device))):
+            t0 = time.perf_counter()
+            phase()
+            log(f"{label}: phase took {time.perf_counter() - t0:.1f} s")
     # each variant's counts are those of the path it belongs to: the training
     # step's (phase 4, and the driver's 12 steps as driver_launches), the
     # multi-frame inference's (phase 6), the driver's evaluation (phase 7) or
-    # another backbone's step or inference (phases 8-9, named by its
-    # "phase"); a variant on no path carries its kernel's phase-4 count
+    # another path named by its "phase" (another backbone's step or
+    # inference, VFI training, test_video, the two-rank steps: phases 8-12);
+    # a variant on no path carries its kernel's phase-4 count
     for name, e in kernels.items():
         for v in [e] + e.get("variants", []):
             path = v.get("path")

@@ -6,11 +6,13 @@ booleans as strings, integer lists as several values).
 
 The port adds one field, `device` (the training entry point's `--device`,
 CUDA unless the caller names another). The JAX package's TPU fields parse
-unchanged, so that its configs and flags are accepted as they are; what the
-port does with each is in `check_port_options`:
-  num_devices    0 or 1: one card (multi-card training is ROADMAP item 14)
-  distributed    must be false (ROADMAP item 14)
-  encoder_remat  must be false (see `check_port_options`)
+unchanged, so that its configs and flags are accepted as they are. What the
+port does with each (mono_vifi_tpu_torch.parallel for the first two;
+`check_port_options` refuses what cannot run):
+  num_devices    ranks started on this host, one a card; 0: every visible
+                 card (one process on the CPU); batch_size is per card
+  distributed    one rank of a `torchrun` job (the env rendezvous)
+  encoder_remat  the encoder's activations recomputed in the backward pass
   fast_warp      no effect: the port always runs its kernels on the card
   debug_nans     torch.autograd.set_detect_anomaly
   profile_steps  a torch.profiler trace of that many steps
@@ -20,8 +22,14 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 from dataclasses import dataclass
 from typing import Sequence
+
+import torch
+
+# the `torch.distributed` env rendezvous, as `torchrun` sets it
+ENV_RENDEZVOUS = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")
 
 
 @dataclass
@@ -106,21 +114,18 @@ class Options:
 
 
 def check_port_options(opts: Options) -> None:
-    """Refuse the JAX package's TPU settings that the port does not carry.
-    `encoder_remat` recomputes the encoder in the backward pass; in PyTorch
-    that forward would update the BatchNorm running statistics a second
-    time, so the port does not offer it."""
-    if opts.num_devices not in (0, 1):
-        raise NotImplementedError(
-            f"num_devices={opts.num_devices}: the port trains on one card; "
-            "multi-card training is ROADMAP item 14")
-    if opts.distributed:
-        raise NotImplementedError(
-            "distributed=True: multi-host training is not ported (ROADMAP item 14)")
-    if opts.encoder_remat:
-        raise NotImplementedError(
-            "encoder_remat=True: recomputing the encoder in backward would update "
-            "the BatchNorm running statistics twice")
+    """Refuse the multi-card settings that cannot run here: more ranks on
+    CUDA than visible cards (`num_devices`), and `distributed` without the
+    `torch.distributed` env rendezvous (`ENV_RENDEZVOUS`). The entry points
+    call it before they start any rank."""
+    if opts.num_devices < 0:
+        raise ValueError(f"num_devices={opts.num_devices}")
+    cards = torch.cuda.device_count()
+    if torch.device(opts.device).type == "cuda" and opts.num_devices > max(cards, 1):
+        raise ValueError(f"num_devices={opts.num_devices}: {cards} CUDA cards visible")
+    missing = [k for k in ENV_RENDEZVOUS if k not in os.environ]
+    if opts.distributed and missing:
+        raise ValueError(f"distributed=True needs the env rendezvous; missing {missing}")
 
 
 _BOOL_FIELDS = {

@@ -2,16 +2,24 @@
 reference train.py).
 
     python -m mono_vifi_tpu_torch.train -c configs/resnet18/ResNet18_KITTI_MR.txt \
-        [--flag value ...] [--device cpu]
+        [--flag value ...] [--device cpu] [--num_devices N]
+    torchrun --nproc_per_node N -m mono_vifi_tpu_torch.train -c ... --distributed true
 
-One process trains on one card (`--device`, CUDA unless another is named;
+Each process trains on one card (`--device`, CUDA unless another is named;
 without a card CUDA raises instead of running on the CPU). `batch_size` is
-the batch of that card. Per epoch: the stateful sampler's order (resumed
-mid-epoch after a checkpoint), the threaded loader decoding and augmenting
-on the host with uint8 staging, `device_prefetch` copying the next batch
-while a step runs, the fused step, a log line every `log_frequency` steps,
-a checkpoint every `save_frequency` steps; then single- and multi-frame
-evaluation (KITTI, Cityscapes; NYUv2 single-frame) and the epoch's weights.
+the batch of one card. `--num_devices N` starts N such processes on this
+host (0, the default: every visible card), `--distributed` makes this
+process one rank of a `torchrun` job (mono_vifi_tpu_torch.parallel); the
+global batch is then `batch_size` times the ranks, each rank reading its
+own stride of the epoch's order. Per epoch: the stateful sampler's order
+(resumed mid-epoch after a checkpoint), the threaded loader decoding and
+augmenting on the host with uint8 staging, `device_prefetch` copying the
+next batch while a step runs, the fused step, a log line every
+`log_frequency` steps, a checkpoint every `save_frequency` steps; then
+single- and multi-frame evaluation (KITTI, Cityscapes; NYUv2 single-frame)
+and the epoch's weights. Rank 0 alone logs, writes and evaluates (on the
+whole test split); the other ranks wait for it at a barrier after each
+save and each evaluation.
 
 cuDNN and TF32: a `Trainer` leaves `torch.backends.cudnn.benchmark` and
 the TF32 switches as its caller set them. The command line entry sets
@@ -36,11 +44,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from mono_vifi_tpu_torch import evaluation
+from mono_vifi_tpu_torch import evaluation, parallel
 from mono_vifi_tpu_torch.config import Options, check_port_options, parse_options
 from mono_vifi_tpu_torch.data import (
     CityscapesDataset, DataLoader, KITTIOdomDataset, KITTIRAWDataset, NYUDataset,
-    StatefulSampler, device_prefetch,
+    StatefulDistributedSampler, device_prefetch,
 )
 from mono_vifi_tpu_torch.evaluate_depth import SPLITS_DIR
 from mono_vifi_tpu_torch.ops.geometry import disp_to_depth
@@ -85,25 +93,30 @@ class Trainer:
             raise ValueError("height and width must be multiples of 32")
         dataset_cls = dataset_class(cfg.dataset)
         self.cfg = cfg
+        self.rank, self.world = parallel.init_distributed(cfg)
+        self.is_chief = self.rank == 0
         self.device = resolve_device(cfg.device)
         if cfg.debug_nans:
             torch.autograd.set_detect_anomaly(True)
 
         self.log_path = os.path.join(cfg.log_dir, cfg.exp_name)
-        os.makedirs(self.log_path, exist_ok=True)
+        if self.is_chief:
+            os.makedirs(self.log_path, exist_ok=True)
         setup_logging(os.path.join(self.log_path, "logger.log"),
-                      filemode="a" if cfg.resume else "w")
-        self.save_opts()
-        logging.info("Experiment: %s | device: %s | backbone: %s", cfg.exp_name,
-                     self.device, cfg.backbone)
+                      filemode="a" if cfg.resume else "w", rank=self.rank)
+        if self.is_chief:
+            self.save_opts()
+        logging.info("Experiment: %s | device: %s | ranks: %d | backbone: %s", cfg.exp_name,
+                     self.device, self.world, cfg.backbone)
 
         self.writer = None
-        try:  # TensorBoard scalars (reference train.py:45-47, :1062-1067)
-            from tensorboardX import SummaryWriter
+        if self.is_chief:
+            try:  # TensorBoard scalars (reference train.py:45-47, :1062-1067)
+                from tensorboardX import SummaryWriter
 
-            self.writer = SummaryWriter(os.path.join(self.log_path, "tensorboard", "train"))
-        except ImportError:
-            pass
+                self.writer = SummaryWriter(os.path.join(self.log_path, "tensorboard", "train"))
+            except ImportError:
+                pass
 
         # ---------------- data
         fpath, fpath_test = split_paths(cfg)
@@ -124,14 +137,15 @@ class Trainer:
             cfg.data_path, test_files, cfg.height, cfg.width, [0, -1, 1], cfg.num_scales,
             is_train=False, img_ext=img_ext,
         )
-        self.sampler = StatefulSampler(len(self.train_dataset), cfg.seed)
+        self.sampler = StatefulDistributedSampler(len(self.train_dataset), cfg.seed,
+                                                  rank=self.rank, num_replicas=self.world)
         self.train_loader = DataLoader(self.train_dataset, cfg.batch_size, sampler=self.sampler,
                                        num_workers=cfg.num_workers, drop_last=True)
         self.test_loader = DataLoader(self.test_dataset, cfg.batch_size,
                                       num_workers=cfg.num_workers, drop_last=False)
         self.steps_per_epoch = len(self.sampler) // cfg.batch_size
         self.num_total_steps = self.steps_per_epoch * cfg.num_epochs
-        self.gt_depths = self._load_gt_depths()
+        self.gt_depths = self._load_gt_depths() if self.is_chief else None
 
         # ---------------- models and state
         self.state = create_train_state(cfg, max(cfg.seed, 0), self.steps_per_epoch,
@@ -146,6 +160,8 @@ class Trainer:
             self.load_pretrained(cfg.pretrained_path)
         if cfg.resume:
             self.load_ckpt()
+        if parallel.active():
+            parallel.broadcast_module_(self.bundle)
 
         self.train_step = MonoViFiStep(self.bundle, self.device).make_train_step()
         self.noise = torch.Generator(device=self.device)
@@ -230,11 +246,15 @@ class Trainer:
             ckpt_lib.load_jax_weights(path, self.bundle)
 
     def save_model(self, epoch: int, batch_idx: int = 0, ep_end: bool = False):
-        if ep_end:
-            ckpt_lib.save_weights(os.path.join(self.log_path, "models", f"model_{epoch}.pth"),
-                                  self.bundle, self.cfg)
-        ckpt_lib.save_checkpoint(self.ckpt_path, self.state, self.cfg,
-                                 epoch=epoch + 1 if ep_end else epoch, batch_idx=batch_idx)
+        """Rank 0 writes; every rank waits until it has."""
+        if self.is_chief:
+            if ep_end:
+                ckpt_lib.save_weights(
+                    os.path.join(self.log_path, "models", f"model_{epoch}.pth"),
+                    self.bundle, self.cfg)
+            ckpt_lib.save_checkpoint(self.ckpt_path, self.state, self.cfg,
+                                     epoch=epoch + 1 if ep_end else epoch, batch_idx=batch_idx)
+        parallel.barrier()
 
     # -------------------------------------------------------------- training
     def train(self):
@@ -243,12 +263,16 @@ class Trainer:
             self.end_epoch(epoch)
 
     def end_epoch(self, epoch: int):
-        """The per-epoch evaluation, then the epoch's weights and checkpoint."""
-        if self.cfg.dataset in ("kitti", "cityscapes") and self.gt_depths is not None:
-            self.test(epoch, multi_frame=False)
-            self.test(epoch, multi_frame=True)
-        elif self.cfg.dataset == "nyuv2":
-            self.test_nyuv2(epoch)
+        """The per-epoch evaluation (rank 0, on the whole test split: the
+        running statistics are equal on every rank), then the epoch's
+        weights and checkpoint."""
+        if self.is_chief:
+            if self.cfg.dataset in ("kitti", "cityscapes") and self.gt_depths is not None:
+                self.test(epoch, multi_frame=False)
+                self.test(epoch, multi_frame=True)
+            elif self.cfg.dataset == "nyuv2":
+                self.test_nyuv2(epoch)
+        parallel.barrier()
         self.save_model(epoch, ep_end=True)
 
     def noise_seed(self, step: int) -> int:
@@ -262,7 +286,7 @@ class Trainer:
         self.train_dataset.set_epoch(epoch)
 
         prof = None
-        if cfg.profile_steps > 0 and epoch == self.ep_start:
+        if cfg.profile_steps > 0 and epoch == self.ep_start and self.is_chief:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -367,8 +391,8 @@ class Trainer:
         return res
 
 
-def main(argv=None):
-    cfg = parse_options(argv)
+def run(cfg: Options):
+    """Train one rank (or the only process) to the end."""
     if torch.device(cfg.device).type == "cuda":
         torch.backends.cudnn.benchmark = True
     trainer = Trainer(cfg)
@@ -376,6 +400,12 @@ def main(argv=None):
         trainer.train()
     finally:
         trainer.close()
+
+
+def main(argv=None):
+    cfg = parse_options(argv)
+    check_port_options(cfg)
+    parallel.launch(run, cfg)
 
 
 if __name__ == "__main__":

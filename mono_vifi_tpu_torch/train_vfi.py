@@ -2,11 +2,14 @@
 train_vfi.py; reference train_vfi.py).
 
     python -m mono_vifi_tpu_torch.train_vfi -c configs/vfi/IFRNet_L_KITTI.txt \
-        [--flag value ...] [--device cpu]
+        [--flag value ...] [--device cpu] [--num_devices N]
 
 Trains IFRNet (`vfi_scale` small | large) on KITTI or Cityscapes triplets to
-interpolate the middle frame, on one card (`--device`, CUDA unless another
-is named; without a card CUDA raises). Per epoch: the stateful sampler's
+interpolate the middle frame, one process a card (`--device`, CUDA unless
+another is named; without a card CUDA raises); `--num_devices` and
+`--distributed` start the ranks as the depth trainer does (`batch_size` per
+card, rank 0 alone logs and writes, visuals only with one rank, as the JAX
+driver). Per epoch: the stateful sampler's
 order (resumed mid-epoch after a checkpoint), the threaded loader,
 `device_prefetch`, the step; every `log_frequency` steps a log line and a
 panel of the middle frame, the prediction and both flows
@@ -26,9 +29,10 @@ import time
 import numpy as np
 import torch
 
+from mono_vifi_tpu_torch import parallel
 from mono_vifi_tpu_torch.config import Options, check_port_options, parse_options
 from mono_vifi_tpu_torch.data import (
-    CityscapesVFIDataset, DataLoader, KITTIVFIDataset, StatefulSampler, device_prefetch,
+    CityscapesVFIDataset, DataLoader, KITTIVFIDataset, StatefulDistributedSampler, device_prefetch,
 )
 from mono_vifi_tpu_torch.evaluate_depth import SPLITS_DIR
 from mono_vifi_tpu_torch.training import checkpoint as ckpt_lib
@@ -42,11 +46,14 @@ class VFITrainer:
     def __init__(self, cfg: Options):
         check_port_options(cfg)
         self.cfg = cfg
+        self.rank, self.world = parallel.init_distributed(cfg)
+        self.is_chief = self.rank == 0
         self.device = resolve_device(cfg.device)
         self.log_path = os.path.join(cfg.log_dir, cfg.exp_name)
-        os.makedirs(self.log_path, exist_ok=True)
+        if self.is_chief:
+            os.makedirs(self.log_path, exist_ok=True)
         setup_logging(os.path.join(self.log_path, "logger.log"),
-                      filemode="a" if cfg.resume else "w")
+                      filemode="a" if cfg.resume else "w", rank=self.rank)
 
         if cfg.dataset == "kitti":
             files = readlines(os.path.join(SPLITS_DIR, "kitti", cfg.split, "train_files.txt"))
@@ -60,7 +67,8 @@ class VFITrainer:
                 is_train=True, seed=cfg.seed)
         else:
             raise ValueError(f"VFI training on {cfg.dataset}: kitti or cityscapes")
-        self.sampler = StatefulSampler(len(self.dataset), cfg.seed)
+        self.sampler = StatefulDistributedSampler(len(self.dataset), cfg.seed, rank=self.rank,
+                                                  num_replicas=self.world)
         self.loader = DataLoader(self.dataset, cfg.batch_size, sampler=self.sampler,
                                  num_workers=cfg.num_workers)
         self.steps_per_epoch = len(self.sampler) // cfg.batch_size
@@ -73,16 +81,19 @@ class VFITrainer:
             self.load_pretrained(cfg.pretrained_path)
         if cfg.resume:
             self.load_ckpt()
+        if parallel.active():
+            parallel.broadcast_module_(self.state.module)
         self.train_step = make_vfi_train_step(cfg.clip_grad)
         self.history: list[dict] = []  # one entry per logged step
 
         self.writer = None
-        try:  # scalars and image/flow panels (reference train_vfi.py:251-268)
-            from tensorboardX import SummaryWriter
+        if self.is_chief:
+            try:  # scalars and image/flow panels (reference train_vfi.py:251-268)
+                from tensorboardX import SummaryWriter
 
-            self.writer = SummaryWriter(os.path.join(self.log_path, "tensorboard", "train"))
-        except ImportError:
-            pass
+                self.writer = SummaryWriter(os.path.join(self.log_path, "tensorboard", "train"))
+            except ImportError:
+                pass
         logging.info("VFI training: %s (%s) | device %s | %d items | %d steps/epoch",
                      cfg.dataset, cfg.vfi_scale, self.device, len(self.dataset),
                      self.steps_per_epoch)
@@ -112,8 +123,12 @@ class VFITrainer:
         logging.info("Resumed at epoch %d batch %d", self.ep_start, self.batch_start)
 
     def save_model(self, epoch: int, batch_idx: int = 0, ep_end: bool = False):
-        ckpt_lib.save_vfi_checkpoint(self.ckpt_path, self.state, self.cfg,
-                                     epoch=epoch + 1 if ep_end else epoch, batch_idx=batch_idx)
+        """Rank 0 writes; every rank waits until it has."""
+        if self.is_chief:
+            ckpt_lib.save_vfi_checkpoint(self.ckpt_path, self.state, self.cfg,
+                                         epoch=epoch + 1 if ep_end else epoch,
+                                         batch_idx=batch_idx)
+        parallel.barrier()
 
     def _log_visuals(self, batch, aux, step: int):
         """gt | prediction over flow0 | flow1 of the batch's first item."""
@@ -167,15 +182,16 @@ class VFITrainer:
                 if self.writer is not None:
                     self.writer.add_scalar("loss", loss, step)
                     self.writer.add_scalar("psnr", psnr, step)
-                self._log_visuals(batch, aux, step)
+                if self.world == 1:  # the first item of the global batch
+                    self._log_visuals(batch, aux, step)
             if gidx > 0 and gidx % cfg.save_frequency == 0:
                 self.save_model(epoch, batch_idx=gidx + 1)
             t0 = time.perf_counter()
         self.batch_start = 0
 
 
-def main(argv=None):
-    cfg = parse_options(argv)
+def run(cfg: Options):
+    """Train one rank (or the only process) to the end."""
     if torch.device(cfg.device).type == "cuda":
         torch.backends.cudnn.benchmark = True
     trainer = VFITrainer(cfg)
@@ -183,6 +199,12 @@ def main(argv=None):
         trainer.train()
     finally:
         trainer.close()
+
+
+def main(argv=None):
+    cfg = parse_options(argv)
+    check_port_options(cfg)
+    parallel.launch(run, cfg)
 
 
 if __name__ == "__main__":

@@ -16,18 +16,23 @@ import copy
 import torch
 import torch.nn as nn
 
+from mono_vifi_tpu_torch import parallel
 from mono_vifi_tpu_torch.config import Options
 from mono_vifi_tpu_torch.models import dhrnet, fusion, ifrnet, litemono, monodepth2, posenet
 
 
 def resolve_device(device=None) -> torch.device:
     """The entry points' device: CUDA unless the caller names another. With
-    no card, CUDA (named or by default) raises instead of using the CPU."""
+    no card, CUDA (named or by default) raises instead of using the CPU. A
+    rank of a process group gets the card it is bound to, `cuda:<i>`, for a
+    bare `cuda`."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device available; pass device='cpu' to run on the CPU"
         )
+    if dev.type == "cuda" and dev.index is None and parallel.active():
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 

@@ -11,6 +11,14 @@ unique-table warp, then the multi-frame decoder; photometric losses over
 consistency losses. BatchNorm statistics are taken over each fused batched
 call, as in the JAX package.
 
+In a process group (mono_vifi_tpu_torch.parallel) each rank takes its own
+rows of the global batch: BatchNorm normalizes over the global batch, the
+step's random draws are the global ones with the rank's rows kept, and the
+gradients and logged metrics are averaged over the ranks, so the step is
+the JAX package's step on a batch-sharded mesh. Every loss is a mean of
+per-sample terms, so the mean of the ranks' equal-sized local losses is the
+global loss.
+
 Images travel channel-planar (B, C, H, W). The batch arrives in the JAX
 package's format (NHWC images, uint8 or f32) and is converted once.
 
@@ -20,12 +28,16 @@ evaluate_depth.py / evaluate_depth_mf.py) close the file.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from mono_vifi_tpu_torch import parallel
 from mono_vifi_tpu_torch.config import Options
+from mono_vifi_tpu_torch.models.common import recomputing
 from mono_vifi_tpu_torch.ops import geometry
 from mono_vifi_tpu_torch.ops import image as image_ops
 from mono_vifi_tpu_torch.ops import losses as L
@@ -67,12 +79,14 @@ def prepare_batch(batch, device):
 class MonoViFiStep:
     """The loss and the train step for one ModelBundle. `device` must match
     the bundle's; like every entry point it defaults to CUDA and raises
-    without a card."""
+    without a card. In a process group, the batch handed to the step is the
+    rank's rows `rank * B:(rank + 1) * B` of the global batch."""
 
     def __init__(self, bundle: ModelBundle, device=None):
         self.b = bundle
         self.cfg = bundle.cfg
         self.device = resolve_device(device)
+        self.rank, self.world = parallel.rank_and_world()
         dev = next(bundle.parameters()).device
         if dev.type != self.device.type:
             raise ValueError(f"bundle is on {dev}, step asked for {self.device}")
@@ -103,11 +117,51 @@ class MonoViFiStep:
                 out[f"drop_path_{role}"] = enc.draw_drop_masks(n, generator, self.device)
         return out
 
+    def draw_noise(self, B: int, H: int, W: int, generator=None, train: bool = True) -> dict:
+        """The step's random draws for a local batch of B: the automask
+        noise, then (train) the drop masks, drawn at the global batch's
+        shapes, as the JAX step draws them once for the global batch, and
+        cut to this rank's rows (`local_noise`)."""
+        Bg = self.world * B
+        noise = {k: torch.randn(s, generator=generator, device=self.device)
+                 for k, s in self.noise_shapes(Bg, H, W).items()}
+        if train:
+            noise.update(self.draw_drop_masks(Bg, generator))
+        return self.local_noise(noise, B)
+
+    def local_noise(self, noise: dict, B: int) -> dict:
+        """This rank's rows of the global draws. Their rows are stacked by
+        role or target, each a block of the global batch (the automask
+        noise (n, k * Bg, H, W), the drop masks (blocks, k * Bg)), so the
+        rank keeps rows rank * B:(rank + 1) * B of every block."""
+        if self.world == 1:
+            return noise
+        Bg, lo, hi = self.world * B, self.rank * B, (self.rank + 1) * B
+        out = {}
+        for k, v in noise.items():
+            blocks = v.view(v.shape[0], -1, Bg, *v.shape[2:])[:, :, lo:hi]
+            out[k] = blocks.reshape(v.shape[0], -1, *v.shape[2:])
+        return out
+
     # ------------------------------------------------------------- helpers
     def _encode(self, role, x, noise):
+        """The encoder's training pass. With `encoder_remat` its activations
+        are recomputed in the backward pass instead of kept (the JAX step's
+        jax.checkpoint): the recompute takes the same drop masks and leaves
+        the BatchNorm statistics alone (`recomputing`). In a process group
+        the recompute repeats the global BatchNorm's forward all-reduces;
+        every rank recomputes the same encoder at the same point of the
+        same backward graph, so the collectives pair up in the same order."""
         masks = noise.get(f"drop_path_{role}")
         enc = getattr(self.b, role)
-        return enc(x) if masks is None else enc(x, masks)
+
+        def run(x, masks):
+            return enc(x) if masks is None else enc(x, masks)
+
+        if not self.cfg.encoder_remat:
+            return run(x, masks)
+        return checkpoint(run, x, masks, use_reentrant=False,
+                          context_fn=lambda: (contextlib.nullcontext(), recomputing()))
 
     def _photometric(self, disp, tgt, src_n1, src_p1, T_n1, T_p1, K, invK,
                      noise, mask_rec=None, smooth_dyn_mask=None,
@@ -175,21 +229,17 @@ class MonoViFiStep:
     # ------------------------------------------------------------ the loss
     def loss_fn(self, batch, generator=None, noise=None, train=True):
         """-> (loss, metrics). `noise` optionally supplies the step's random
-        draws: the automask tie-break noise ({"n1", "n2"}, shapes from
-        `noise_shapes`) and, in train mode, the encoders' stochastic-depth
-        masks (`draw_drop_masks`); otherwise they are drawn from `generator`
-        (an explicit torch.Generator on the step's device), the noise first.
-        In train mode BatchNorm running statistics update in place."""
+        draws for this batch: the automask tie-break noise ({"n1", "n2"},
+        shapes from `noise_shapes`) and, in train mode, the encoders'
+        stochastic-depth masks (`draw_drop_masks`); otherwise they are drawn
+        from `generator` (an explicit torch.Generator on the step's device,
+        seeded alike on every rank) by `draw_noise`. In train mode BatchNorm
+        running statistics update in place."""
         cfg, b = self.cfg, self.b
         batch = prepare_batch(batch, self.device)
         B, _, H, W = batch["color_0"].shape
         if noise is None:
-            noise = {
-                k: torch.randn(s, generator=generator, device=self.device)
-                for k, s in self.noise_shapes(B, H, W).items()
-            }
-            if train:
-                noise.update(self.draw_drop_masks(B, generator))
+            noise = self.draw_noise(B, H, W, generator, train)
         b.train(train)
         img_n1, img_0, img_p1 = batch["color_n1"], batch["color_0"], batch["color_p1"]
         aug_n1, aug_0, aug_p1 = (
@@ -365,12 +415,15 @@ class MonoViFiStep:
         """-> train_step(state, batch, generator=None, noise=None) -> metrics.
         Updates the state's parameters, optimizer moments and BatchNorm
         statistics in place: backward, global-norm clip, then the update at
-        the schedule's rate for `state.step`."""
+        the schedule's rate for `state.step`. In a process group the
+        metrics are the global batch's (averaged over the ranks)."""
         def train_step(state, batch, generator=None, noise=None):
             state.optimizer.zero_grad(set_to_none=True)
             loss, metrics = self.loss_fn(batch, generator, noise, train=True)
             loss.backward()
             metrics = {k: v.detach() for k, v in metrics.items()}
+            if parallel.active():
+                parallel.all_reduce_mean_(list(metrics.values()))
             metrics["grad_norm"] = apply_gradients(state, self.cfg.clip_grad)
             return metrics
 
@@ -389,13 +442,15 @@ class TrainState:
 
 
 def apply_gradients(state: TrainState, clip_grad: float) -> torch.Tensor:
-    """Clip the parameters' gradients by their global norm, update at the
-    schedule's rate for `state.step`, advance the step; -> the norm before
-    clipping."""
+    """Average the gradients over the ranks of a process group, clip them
+    by their global norm, update at the schedule's rate for `state.step`,
+    advance the step; -> the norm before clipping."""
     for p in state.params:
         if p.grad is None:  # optax updates every leaf
             p.grad = torch.zeros_like(p)
     grads = [p.grad for p in state.params]
+    if parallel.active():
+        parallel.all_reduce_mean_(grads)
     gnorm = global_norm(grads)
     if clip_grad is not None and clip_grad > 0:
         clip_by_global_norm_(grads, clip_grad, gnorm)

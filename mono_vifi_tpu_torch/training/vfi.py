@@ -8,6 +8,11 @@ The flows are trained through the two full-resolution image warps, whose
 grid gradient is the `bilinear_sample_bwd` kernel on the card; the feature
 warps are the plain differentiable warp, as on the JAX side (its VFI
 IFRNet is built without `fast_warp`).
+
+In a process group (mono_vifi_tpu_torch.parallel) each rank steps on its
+rows of the global batch; `apply_gradients` averages the gradients, and the
+loss and the prediction's mean squared error are averaged over the ranks
+before the PSNR is taken, so the metrics are the global batch's.
 """
 
 from __future__ import annotations
@@ -17,6 +22,7 @@ from typing import Callable
 
 import torch
 
+from mono_vifi_tpu_torch import parallel
 from mono_vifi_tpu_torch.config import Options
 from mono_vifi_tpu_torch.models.ifrnet import IFRNet
 from mono_vifi_tpu_torch.training.factory import compute_dtype, resolve_device
@@ -65,9 +71,13 @@ def make_vfi_train_step(clip_grad: float):
         out = state.module(b["img0"], b["img2"], b["embt"].reshape(-1, 1, 1, 1), imgt=img1)
         out["loss"].backward()
         grad_norm = apply_gradients(state, clip_grad)
+        loss = out["loss"].detach()
         with torch.no_grad():
-            psnr = -10.0 * torch.log10(torch.mean((out["imgt_pred"] - img1) ** 2) + 1e-12)
-        metrics = {"loss": out["loss"].detach(), "psnr": psnr, "grad_norm": grad_norm}
+            mse = torch.mean((out["imgt_pred"] - img1) ** 2)
+            if parallel.active():
+                parallel.all_reduce_mean_([loss, mse])
+            psnr = -10.0 * torch.log10(mse + 1e-12)
+        metrics = {"loss": loss, "psnr": psnr, "grad_norm": grad_norm}
         aux = {k: out[k].detach() for k in ("imgt_pred", "flow0", "flow1")}
         return metrics, aux
 

@@ -34,14 +34,15 @@ def sec_to_hm_str(t: float) -> str:
     return f"{h:02d}h{m:02d}m{s:02d}s"
 
 
-def setup_logging(filename: str | None = None, filemode: str = "w"):
-    """INFO logging to the console and an optional per-experiment log file."""
+def setup_logging(filename: str | None = None, filemode: str = "w", rank: int = 0):
+    """INFO logging to the console and an optional per-experiment log file
+    on rank 0; the other ranks log warnings to the console only."""
     handlers: list[logging.Handler] = [logging.StreamHandler(sys.stdout)]
-    if filename is not None:
+    if filename is not None and rank == 0:
         os.makedirs(os.path.dirname(filename) or ".", exist_ok=True)
         handlers.append(logging.FileHandler(filename, mode=filemode))
     logging.basicConfig(
-        level=logging.INFO,
+        level=logging.INFO if rank == 0 else logging.WARNING,
         format="%(asctime)s %(levelname)s %(message)s",
         handlers=handlers,
         force=True,

@@ -13,7 +13,11 @@ builds the VFI training step of `--config` (default
 configs/vfi/IFRNet_L_KITTI.txt, chip_smoke.py's phase 10: IFRNet-L, batch 16,
 the 160x576 crop, bf16) on a batch of frames from a numpy seed, and also
 times the plain feature warps at the step's three levels, forward and
-forward + backward (CUDA events), as a share of the step's device time. Each
+forward + backward (CUDA events), as a share of the step's device time.
+`--world1` runs the training step as the one rank of an NCCL process group
+(a file rendezvous in a temporary directory), so that every BatchNorm is
+the global one (`models.common._GlobalBatchNorm`): the step's multi-card
+arithmetic at a world of 1, to set beside the run without it. Each
 runs 2 warm-up calls, times 5
 with the host clock, then traces 3 with torch.profiler and prints per call:
 the device's busy share (kernel time over wall time), the kernel time by
@@ -26,7 +30,7 @@ the script reads any version of the port. Run from the repository root on
 a machine with a CUDA device:
 
     python3 profile_torch_step.py [--path train|single|multi|vfi] [--config FILE]
-        [--backbone NAME]
+        [--backbone NAME] [--world1]
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from __future__ import annotations
 import argparse
 import re
 import subprocess
+import tempfile
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -159,8 +164,12 @@ def main() -> None:
     ap.add_argument("--config", default=None)
     ap.add_argument("--backbone", default=None,
                     help="the config's backbone replaced (ResNet50 has no config file)")
+    ap.add_argument("--world1", action="store_true",
+                    help="the training step as the one rank of an NCCL process group")
     args = ap.parse_args()
     path = args.path
+    if args.world1 and path != "train":
+        ap.error("--world1 profiles the training step")
     if args.config is None:
         args.config = ("configs/vfi/IFRNet_L_KITTI.txt" if path == "vfi"
                        else "configs/resnet18/ResNet18_KITTI_MR.txt")
@@ -180,7 +189,14 @@ def main() -> None:
               f"{VFI_CROP}, {cfg.compute_dtype}")
         call, n = vfi_call(dev, cfg)
     elif path == "train":
-        print(f"{args.config}: {cfg.backbone}, batch {cfg.batch_size}")
+        print(f"{args.config}: {cfg.backbone}, batch {cfg.batch_size}"
+              + (", one rank of an NCCL process group" if args.world1 else ""))
+        if args.world1:
+            import torch.distributed as dist
+
+            rendezvous = tempfile.TemporaryDirectory()
+            dist.init_process_group("nccl", init_method=f"file://{rendezvous.name}/file",
+                                    rank=0, world_size=1)
         call, n = train_call(dev, cfg)
     else:
         print(f"{args.config}: {cfg.backbone}, batch {cfg.batch_size}")
@@ -239,6 +255,9 @@ def main() -> None:
         print(f"plain feature warps: forward {total_f:.3f} ms/step ({total_f / busy:.1%}), "
               f"backward {total_fb - total_f:.3f} ms/step ({(total_fb - total_f) / busy:.1%} "
               "of the step's device time)")
+    if args.world1:
+        dist.destroy_process_group()
+        rendezvous.cleanup()
 
 
 if __name__ == "__main__":

@@ -1,17 +1,19 @@
 """The port's config parser against the JAX package's (mono_vifi_tpu/config.py),
 on every depth config the repo ships and a set of command-line overrides:
 the same value, field by field, for every field of the JAX `Options` (the
-port has one more, `device`). Also: the TPU fields the port does not carry
-parse but refuse to train, and the entry module's command line parses."""
+port has one more, `device`). Also: the multi-card fields parse and are
+refused only where they cannot run, and the entry module's command line
+parses."""
 
 import dataclasses
 import pathlib
 
 import pytest
+import torch
 
 from mono_vifi_tpu.config import Options as JOptions
 from mono_vifi_tpu.config import parse_options as jparse_options
-from mono_vifi_tpu_torch.config import Options, check_port_options, parse_options
+from mono_vifi_tpu_torch.config import ENV_RENDEZVOUS, Options, check_port_options, parse_options
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CONFIGS = sorted(str(p.relative_to(ROOT)) for d in ("resnet18", "litemono", "dhrnet")
@@ -56,10 +58,34 @@ def test_device_flag_parses(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value,match", [
-    ("num_devices", 8, "item 14"), ("distributed", True, "item 14"),
-    ("encoder_remat", True, "BatchNorm"),
+    ("num_devices", 8, "1 CUDA cards visible"),  # more ranks than cards: refused
+    ("distributed", True, "env rendezvous"),  # no torchrun env: refused
+    ("encoder_remat", True, None),  # accepted
 ])
-def test_tpu_fields_the_port_does_not_carry_are_refused(field, value, match):
+def test_tpu_fields_the_port_does_not_carry_are_refused(field, value, match, monkeypatch):
+    """The multi-card and remat fields: what cannot run here is refused
+    (more ranks than visible cards, `distributed` without the env
+    rendezvous), `encoder_remat` is accepted."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    for k in ENV_RENDEZVOUS:
+        monkeypatch.delenv(k, raising=False)
     check_port_options(Options(num_devices=1, fast_warp=False, profile_steps=2))
-    with pytest.raises(NotImplementedError, match=match):
+    if match is None:
         check_port_options(Options(**{field: value}))
+    else:
+        with pytest.raises(ValueError, match=match):
+            check_port_options(Options(**{field: value}))
+
+
+def test_multi_card_fields_are_accepted_where_they_can_run(monkeypatch):
+    """Ranks on the CPU need no card; `distributed` runs with the env
+    rendezvous; 0 cards' worth of ranks means every visible card."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    check_port_options(Options(num_devices=4))
+    check_port_options(Options(num_devices=0))
+    check_port_options(Options(num_devices=8, device="cpu"))
+    with pytest.raises(ValueError, match="num_devices=-1"):
+        check_port_options(Options(num_devices=-1))
+    for k, v in zip(ENV_RENDEZVOUS, ("0", "1", "0", "127.0.0.1", "29500")):
+        monkeypatch.setenv(k, v)
+    check_port_options(Options(distributed=True))
