@@ -110,21 +110,58 @@ Phases, in order; any failure exits non-zero before the last line:
      it on the same weights, batch and draws: loss terms, gradient norm and
      BatchNorm buffers rel 1e-3, the statistics moved once; ms/step and peak
      memory each way;
- 15. the whole run's time, one JSON line describing every kernel (each
+ 15. the port's bench (mono_vifi_tpu_torch.bench.main, as `python -m
+     mono_vifi_tpu_torch.bench` runs it, cudnn.benchmark on: the ResNet18
+     KITTI-MR step, then `--hr`, 320x1024 at batch 4 with encoder_remat):
+     its windows' line and JSON line each, every kernel launched in each at
+     phase 4's shapes and the HR ResNet18 step's; then the default through
+     `bench.run` with cudnn.benchmark off (the autotuner's effect);
+ 16. the port's convergence smoke (mono_vifi_tpu_torch.convergence_smoke at
+     its defaults: 300 bf16 steps on the analytic scene at 96x320, batch 2,
+     no affine branch): abs_rel and the disparity's range every 50 steps,
+     its JSON line and both abs_rel numbers; the loss must fall below 0.85
+     of its first tenth's, every kernel launched at the shapes phase 3
+     checked for it;
+ 17. the three configs/*/*_KITTI_HR.txt (1024x320, batches 4, 3, 3) as
+     phase 8's steps (parse_options, ms/step, samples/s, peak memory,
+     launches by shape, loss terms and pose gradient norm kernels vs plain
+     rel 1e-3); then ResNet18_KITTI_HR.txt through the real `Trainer` on
+     phase 7's tree (12 lines: an epoch of 3 steps), started from phase 7's
+     models/model_0.pth through --pretrained_path (every key loaded bit for
+     bit, none missing or unexpected), its per-epoch single- and
+     multi-frame evaluation at 1024x320 (multi-frame disparities kernels vs
+     plain within 1e-5) and its save;
+ 18. a synthetic Cityscapes tree (mono_vifi_tpu_torch.data.synthetic: 36
+     preprocessed training stacks of 3 frames at 1024x384, 4 test frames
+     of 2048x1024 with their neighbours, camera files, synthetic ground
+     truths): ResNet18_CS.txt (512x192, batch 12) through the real
+     `Trainer` as in phase 17 (an epoch of 3 steps, the Cityscapes
+     evaluation protocol), then LiteMono_CS.txt and DHRNet_CS.txt (batches
+     8 and 6) as phase 8's steps;
+ 19. configs/vfi/IFRNet_L_CS.txt (crop 176x480) on that tree and
+     IFRNet_S_KITTI.txt on phase 7's through `VFITrainer`: 2 warm-up and 3
+     timed steps of the trainer's own state on its first batch, the image
+     warps' kernels launched once a step at the crop, loss and gradient
+     norm kernels vs plain (rel 1e-3);
+ 20. the whole run's time, one JSON line describing every kernel (each
      variant's launches those of its own path), then the result line.
 
-Phase 3 also checks and times every kernel at the shapes phases 8-12 give
+Phase 3 also checks and times every kernel at the shapes phases 8-19 give
 it (the splat at channel groups of 5 and 9, the table sample bit for bit at
 18 to 2048 channels and at batch 1, the sample and its grid gradient at the
 VFI crops, every kernel at the two-rank step's local batch of 5 and the
-VFI step's of 8), each variant naming its "phase".
+VFI step's of 8, at the HR configs' 320x1024 and the Cityscapes configs'
+192x512 with their batches, the table sample at the HR and Cityscapes
+Trainers' evaluations, and every kernel at the convergence smoke's 96x320,
+batch 2, without the affine branch's shapes), each variant naming its
+"phase".
 """
 
 from __future__ import annotations
 
 import json
 import math
-import subprocess
+import os
 import sys
 import tempfile
 import time
@@ -135,24 +172,66 @@ B, H, W = 10, 192, 640
 BI = 4  # the evaluation entry points' default batch
 N_TEST = 8  # phase 7's test split: one evaluation batch of 8 (batch_size 10)
 DRIVER_EVAL = "training driver's per-epoch multi-frame evaluation"
-# the other backbones' training configurations: (label, config, batch, the
-# encoder's levels (channels, height, width) at 640x192)
-BACKBONE_STEPS = (
-    ("LiteMono step", "configs/litemono/LiteMono_KITTI_MR.txt", 8,
-     ((48, H // 4, W // 4), (80, H // 8, W // 8), (128, H // 16, W // 16))),
-    ("D-HRNet step", "configs/dhrnet/DHRNet_KITTI_MR.txt", 6,
-     ((64, H // 2, W // 2), (18, H // 4, W // 4), (36, H // 8, W // 8),
-      (72, H // 16, W // 16), (144, H // 32, W // 32))),
-)
+HR, CS = (320, 1024), (192, 512)  # (height, width) of *_KITTI_HR.txt and *_CS.txt
+
+
+# each backbone's encoder levels (channels, height, width) that the fusion
+# module warps, at an input of h x w (models/fusion.py: LiteMono fuses from
+# its stride-4 level)
+def resnet18_levels(h, w):
+    return ((64, h // 2, w // 2), (64, h // 4, w // 4), (128, h // 8, w // 8),
+            (256, h // 16, w // 16), (512, h // 32, w // 32))
+
+
+def litemono_levels(h, w):
+    return ((48, h // 4, w // 4), (80, h // 8, w // 8), (128, h // 16, w // 16))
+
+
+def dhrnet_levels(h, w):
+    return ((64, h // 2, w // 2), (18, h // 4, w // 4), (36, h // 8, w // 8),
+            (72, h // 16, w // 16), (144, h // 32, w // 32))
+
+
+RESNET18_LEVELS = resnet18_levels(H, W)
 RESNET50_LEVELS = ((64, H // 2, W // 2), (256, H // 4, W // 4), (512, H // 8, W // 8),
                    (1024, H // 16, W // 16), (2048, H // 32, W // 32))
-RESNET18_LEVELS = ((64, H // 2, W // 2), (64, H // 4, W // 4), (128, H // 8, W // 8),
-                   (256, H // 16, W // 16), (512, H // 32, W // 32))
+# the training paths besides phase 4's whose kernels phase 3 checks at their
+# shapes: (label, config, batch, encoder levels, (height, width)). Phase 8:
+# the other backbones at 640x192; phases 17-18: the KITTI-HR and Cityscapes
+# configurations (ResNet18's Cityscapes steps are those of its Trainer)
+BACKBONE_STEPS = (
+    ("LiteMono step", "configs/litemono/LiteMono_KITTI_MR.txt", 8, litemono_levels(H, W), (H, W)),
+    ("D-HRNet step", "configs/dhrnet/DHRNet_KITTI_MR.txt", 6, dhrnet_levels(H, W), (H, W)),
+)
+HR_STEPS = (
+    ("ResNet18 HR step", "configs/resnet18/ResNet18_KITTI_HR.txt", 4, resnet18_levels(*HR), HR),
+    ("LiteMono HR step", "configs/litemono/LiteMono_KITTI_HR.txt", 3, litemono_levels(*HR), HR),
+    ("D-HRNet HR step", "configs/dhrnet/DHRNet_KITTI_HR.txt", 3, dhrnet_levels(*HR), HR),
+)
+CS_STEPS = (
+    ("LiteMono CS step", "configs/litemono/LiteMono_CS.txt", 8, litemono_levels(*CS), CS),
+    ("D-HRNet CS step", "configs/dhrnet/DHRNet_CS.txt", 6, dhrnet_levels(*CS), CS),
+)
+CS_DRIVER = ("Cityscapes driver steps", "configs/resnet18/ResNet18_CS.txt", 12,
+             resnet18_levels(*CS), CS)
+HR_DRIVER = "HR driver steps"  # ResNet18_KITTI_HR.txt's Trainer: HR_STEPS[0]'s shapes
+# the HR and Cityscapes Trainers' per-epoch multi-frame evaluations, bf16:
+# (label, evaluation batch, levels): phase 7's 8 test frames in batches of
+# 4, and the synthetic Cityscapes tree's N_CS_TEST frames in one batch
+N_CS_TEST = 4
+DRIVER_EVALS = (("HR driver evaluation", 4, resnet18_levels(*HR)),
+                ("Cityscapes driver evaluation", N_CS_TEST, resnet18_levels(*CS)))
 # phase 12: two ranks sharing the card, each at half of the ResNet18 step's
 # batch and of the VFI step's; phase 3 checks the kernels at their shapes
 DDP_STEP, DDP_VFI = "two-rank step", "two-rank VFI step"
 DDP_B, DDP_VFI_B = B // 2, 16 // 2
-KERNEL_STEPS = BACKBONE_STEPS + ((DDP_STEP, None, DDP_B, RESNET18_LEVELS),)
+# phase 16: the convergence smoke at its command line's defaults (ResNet18,
+# shared_all, tiny VFI, batch 2 at 96x320) and without the affine branch: no
+# 3B affine stack, rotation or SADC restore
+CONVERGENCE = ("convergence smoke", None, 2, resnet18_levels(96, 320), (96, 320))
+NO_AFFINE = {CONVERGENCE[0]}
+KERNEL_STEPS = BACKBONE_STEPS + HR_STEPS + CS_STEPS + (
+    CS_DRIVER, (DDP_STEP, None, DDP_B, RESNET18_LEVELS, (H, W)), CONVERGENCE)
 # the multi-frame inference of each other backbone (batch BI, f32): (label,
 # backbone, its levels, whether single-frame inference runs too)
 BACKBONE_INFERENCE = (
@@ -161,14 +240,17 @@ BACKBONE_INFERENCE = (
     ("ResNet50 multi-frame inference", "ResNet50", RESNET50_LEVELS, False),
 )
 # phase 10: VFI training from configs/vfi/IFRNet_L_KITTI.txt (IFRNet-L, batch 16,
-# crop 160x576; both frames' image warps in one launch); phase 11: test_video
-# at batch 1 (multi-frame: 2 uses of 3 planes per fusion level)
+# crop 160x576; both frames' image warps in one launch); phase 19: the same
+# from IFRNet_L_CS.txt (crop 176x480) and IFRNet_S_KITTI.txt; phase 11:
+# test_video at batch 1 (multi-frame: 2 uses of 3 planes per fusion level)
 VFI_STEP = "VFI step"
 VFI_B, VFI_CROP, VFI_CROP_CS = 16, (160, 576), (176, 480)
+VFI_CONFIGS = (("VFI CS step", "configs/vfi/IFRNet_L_CS.txt", VFI_CROP_CS),
+               ("VFI-S step", "configs/vfi/IFRNet_S_KITTI.txt", VFI_CROP))
 VFI_SAVE = 4  # phase 10's save_frequency: a mid-epoch checkpoint after step 5
 TEST_VIDEO = "test_video"
-EXTRA_PHASES = [label for label, *_ in KERNEL_STEPS + BACKBONE_INFERENCE] + [
-    VFI_STEP, TEST_VIDEO, DDP_VFI]
+EXTRA_PHASES = [label for label, *_ in KERNEL_STEPS + BACKBONE_INFERENCE + DRIVER_EVALS
+                + VFI_CONFIGS] + [VFI_STEP, TEST_VIDEO, DDP_VFI]
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_F32_FLOP_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
 
@@ -280,28 +362,28 @@ def kernel_phase(device):
         return img, gx.contiguous(), gy.contiguous()
 
     variants = []
-    sample_cases = [(B, None)] + [(b, label) for label, _, b, _ in KERNEL_STEPS]
-    # the VFI step's image warps, both frames of the batch in one launch: at
-    # the KITTI crop (phase 10) and at the Cityscapes crop
-    # (configs/vfi/IFRNet_L_CS.txt; no phase runs it)
-    vfi_cases = [(2 * VFI_B, VFI_CROP, "VFI training image warps, 2B frames", VFI_STEP),
-                 (2 * VFI_B, VFI_CROP_CS, None, None),
-                 (2 * DDP_VFI_B, VFI_CROP, "VFI training image warps, 2B frames", DDP_VFI)]
+    sample_cases = [(B, None, (H, W))] + [(b, label, hw) for label, _, b, _, hw in KERNEL_STEPS]
+    # the VFI steps' image warps, both frames of the batch in one launch: at
+    # the KITTI crop (phases 10, 12 and IFRNet-S's in 19) and at the
+    # Cityscapes crop (configs/vfi/IFRNet_L_CS.txt, phase 19)
+    vfi_path = "VFI training image warps, 2B frames"
+    vfi_cases = [(2 * VFI_B, VFI_CROP, VFI_STEP)] + [
+        (2 * VFI_B, crop, label) for label, _, crop in VFI_CONFIGS] + [
+        (2 * DDP_VFI_B, VFI_CROP, DDP_VFI)]
     for n, c, mode, td, path, phase, hw in [
-        (12 * b, 3, "border", torch.bfloat16, "photometric warp, 6B targets x 2 sources", ph,
-         (H, W)) for b, ph in sample_cases
+        (12 * b, 3, "border", torch.bfloat16, "photometric warp, 6B targets x 2 sources", ph, hw)
+        for b, ph, hw in sample_cases
     ] + [(12 * B, 3, "border", torch.float32, None, None, (H, W))] + [  # f32 taps
-        case for b, ph in sample_cases for case in (
+        case for b, ph, hw in sample_cases for case in (
             (6 * b, 3, "border", torch.bfloat16, "photometric warp, 3B affine targets x 2", ph,
-             (H, W)),
-            (4 * b, 3, "border", torch.bfloat16, "IFRNet synthesis, 2B pairs x 2 frames", ph,
-             (H, W)),
+             hw),
+            (4 * b, 3, "border", torch.bfloat16, "IFRNet synthesis, 2B pairs x 2 frames", ph, hw),
             (2 * b, 3, "zeros", torch.float32, "affine rotation of the 2B synthesized frames",
-             ph, (H, W)),
-            (3 * b, 1, "zeros", torch.float32, "SADC depth restore (forward)", ph, (H, W)),
-        )
-    ] + [(n, 3, "border", torch.bfloat16, path, phase, hw)
-         for n, hw, path, phase in vfi_cases]:
+             ph, hw),
+            (3 * b, 1, "zeros", torch.float32, "SADC depth restore (forward)", ph, hw),
+        ) if ph not in NO_AFFINE or case[4].startswith("IFRNet")
+    ] + [(n, 3, "border", torch.bfloat16, vfi_path, phase, hw)
+         for n, hw, phase in vfi_cases]:
         img, gx, gy = sample_inputs(n, c, mode, *hw)
         k = WP.bilinear_sample(img, gx, gy, mode, tap_dtype=td)
         p = WP.bilinear_sample_plain(img, gx, gy, mode, tap_dtype=td)
@@ -320,14 +402,13 @@ def kernel_phase(device):
             "mono_vifi_tpu/ops/pallas/warp.py:139" if td == torch.bfloat16
             else "mono_vifi_tpu/ops/pallas/warp.py:59",
             err, 0.0, ms, pms, nbytes, flops, lib,
-        ) | {"shape": f"img {tuple(img.shape)} f32, {str(td)[6:]} taps, {mode}"
-                      + (", Cityscapes VFI crop" if hw == VFI_CROP_CS else "")}
+        ) | {"shape": f"img {tuple(img.shape)} f32, {str(td)[6:]} taps, {mode}"}
             | ({"path": path, "launch_shape": tuple(img.shape)} if path else {})
             | ({"phase": phase} if phase else {}))
     out["bilinear_sample"] = variants[0] | {"variants": variants[1:]}
 
     # its grid gradient at the 6B photometric shape, bf16 taps as there; then
-    # the other backbones' 6B and 3B photometric shapes
+    # the other paths' 6B and 3B photometric shapes
     variants = []
     stack_path = {12: "photometric warp, 6B targets x 2 sources",
                   6: "photometric warp, 3B affine targets x 2"}
@@ -358,37 +439,46 @@ def kernel_phase(device):
             {"path": path, "launch_shape": tuple(img.shape)} if path else {}) | (
             {"phase": phase} if phase else {})
 
-    for k, n, phase in [(12, 12 * B, None)] + [(k, k * b, label)
-                                               for label, _, b, _ in KERNEL_STEPS
-                                               for k in (12, 6)]:
-        img, gx, gy = sample_inputs(n, 3, "border")
-        variants.append(sample_bwd_case(img, gx, gy, stack_path[k], phase))
-        del img, gx, gy
-    # the VFI step's image-warp gradient (the flows' training signal) at the
-    # KITTI crop (phase 10) and the Cityscapes crop (no phase runs it)
-    for n, (h, w), path, phase in vfi_cases:
+    for k, n, phase, (h, w) in [(12, 12 * B, None, (H, W))] + [
+            (k, k * b, label, hw) for label, _, b, _, hw in KERNEL_STEPS
+            for k in ((12,) if label in NO_AFFINE else (12, 6))]:
         img, gx, gy = sample_inputs(n, 3, "border", h, w)
-        v = sample_bwd_case(img, gx, gy, path, phase, w)
-        if not path:
-            v["shape"] += ", Cityscapes VFI crop"
-        variants.append(v)
+        variants.append(sample_bwd_case(img, gx, gy, stack_path[k], phase, w))
+        del img, gx, gy
+    # the VFI steps' image-warp gradient (the flows' training signal)
+    for n, (h, w), phase in vfi_cases:
+        img, gx, gy = sample_inputs(n, 3, "border", h, w)
+        variants.append(sample_bwd_case(img, gx, gy, vfi_path, phase, w))
         del img, gx, gy
     out["bilinear_sample_bwd"] = variants[0] | {"variants": variants[1:]}
 
     # kernels 2 and 3: the photometric map over the 6B-target stack, then
     # the 3B-target stack, ragged shapes (odd width: no float2 loads), H = 3,
-    # W = 3 and the map without SSIM (an elementwise pass)
+    # W = 3 and the map without SSIM (an elementwise pass); then the other
+    # paths' 6B and 3B stacks (the 3B stack's backward only with the affine
+    # branch: without it the 3B map is the identity reprojection's, no
+    # gradient)
     N = 6 * B
-    x = torch.rand((N, 3, H, W), generator=gen, device=device)
-    y = (x + 0.1 * torch.randn((N, 3, H, W), generator=gen, device=device)).clamp(0, 1)
+
+    def photometric_pair(n, h, w):
+        x = torch.rand((n, 3, h, w), generator=gen, device=device)
+        return x, (x + 0.1 * torch.randn(x.shape, generator=gen, device=device)).clamp(0, 1)
+
+    x, y = photometric_pair(N, H, W)
     variants = []
-    stacks = [(k * b, label) for label, _, b, _ in KERNEL_STEPS for k in (6, 3)]
+    stacks = [(k * b, label, hw) for label, _, b, _, hw in KERNEL_STEPS for k in (6, 3)]
+    bwd_stacks = [(k * b, label, hw) for label, _, b, _, hw in KERNEL_STEPS
+                  for k in ((6,) if label in NO_AFFINE else (6, 3))]
+    on_path = {(N, H, W), (3 * B, H, W)} | {(n, *hw) for n, _, hw in stacks}
     for n, h, w, use_ssim, phase in (
             [(N, H, W, True, None), (3 * B, H, W, True, None), (8, 187, 629, True, None),
              (8, 3, W, True, None), (8, H, 3, True, None), (N, H, W, False, None)]
-            + [(n, H, W, True, label) for n, label in stacks]):
-        xs = x[:n, :, :h, :w].contiguous()
-        ys = y[:n, :, :h, :w].contiguous()
+            + [(n, *hw, True, label) for n, label, hw in stacks]):
+        if phase:
+            xs, ys = photometric_pair(n, h, w)
+        else:
+            xs = x[:n, :, :h, :w].contiguous()
+            ys = y[:n, :, :h, :w].contiguous()
         k = PM.ssim_l1_fwd(xs, ys, use_ssim)
         p = PM.ssim_l1_fwd_plain(xs, ys, use_ssim)
         err = (k - p).abs().max().item()
@@ -399,7 +489,7 @@ def kernel_phase(device):
             "mono_vifi_tpu/ops/pallas/photometric.py:90", err, 1e-5, ms, pms,
             (2 * xs.numel() + k.numel()) * 4, (55.0 if use_ssim else 3.0) * xs.numel(), None,
         ) | {"shape": f"x, y {tuple(xs.shape)} f32" + ("" if use_ssim else ", no SSIM")}
-            | ({"launch_shape": tuple(xs.shape)} if use_ssim and h == H and w == W else {})
+            | ({"launch_shape": tuple(xs.shape)} if use_ssim and (n, h, w) in on_path else {})
             | ({"phase": phase} if phase else {}))
     out["ssim_l1_fwd"] = variants[0] | {"variants": variants[1:]}
     # the one-launch backward at the path's shape, then ragged shapes (H, W
@@ -407,9 +497,12 @@ def kernel_phase(device):
     # fold reaches across the whole edge)
     variants = []
     for n, h, w, phase in ([(N, H, W, None), (8, 187, 629, None), (8, 3, W, None),
-                            (8, H, 3, None)] + [(n, H, W, label) for n, label in stacks]):
-        xs = x[:n, :, :h, :w].contiguous()
-        ys = y[:n, :, :h, :w].contiguous()
+                            (8, H, 3, None)] + [(n, *hw, label) for n, label, hw in bwd_stacks]):
+        if phase:
+            xs, ys = photometric_pair(n, h, w)
+        else:
+            xs = x[:n, :, :h, :w].contiguous()
+            ys = y[:n, :, :h, :w].contiguous()
         ct = torch.rand((n,) + xs.shape[2:], generator=gen, device=device)
         k = PM.ssim_l1_bwd(xs, ys, ct)
         p = PM.ssim_l1_bwd_plain(xs, ys, ct)
@@ -422,7 +515,7 @@ def kernel_phase(device):
             "mono_vifi_tpu/ops/pallas/photometric.py:113", err, 1e-4 * scale, ms, pms,
             (3 * xs.numel() + ct.numel()) * 4, 200.0 * xs.numel(), None,
         ) | {"shape": f"x, y {tuple(xs.shape)} f32, one launch"}
-            | ({"launch_shape": tuple(xs.shape)} if h == H and w == W else {})
+            | ({"launch_shape": tuple(xs.shape)} if (n, h, w) in on_path else {})
             | ({"phase": phase} if phase else {}))
     out["ssim_l1_bwd"] = variants[0] | {"variants": variants[1:]}
     del x, y, xs, ys
@@ -504,9 +597,9 @@ def kernel_phase(device):
                "mono_vifi_tpu/ops/pallas/splat.py:77")
     del ctb
 
-    # the other backbones' and the two-rank step's fusion levels (6b uses of
-    # 3b planes, channel groups of 5 and 9 among them)
-    for phase, _, b, levels in KERNEL_STEPS:
+    # the other paths' fusion levels (6b uses of 3b planes, channel groups of
+    # 5 and 9 among them)
+    for phase, _, b, levels, _ in KERNEL_STEPS:
         ids_b = torch.tensor([q * b + j for q in TABLE_USES for j in range(b)],
                              dtype=torch.int32, device=device)
         for level, (C, h, w) in enumerate(levels):
@@ -520,12 +613,13 @@ def kernel_phase(device):
                        out_dtype=torch.bfloat16, phase=phase)
     del ctb
 
-    for b, phase in [(B, None)] + [(b, label) for label, _, b, _ in KERNEL_STEPS]:
+    for b, phase, (h, w) in [(B, None, (H, W))] + [
+            (b, label, hw) for label, _, b, _, hw in KERNEL_STEPS if label not in NO_AFFINE]:
         angle = (torch.rand((3 * b,), generator=gen, device=device) - 0.5) * 10.0
-        gx, gy = rotation_grid(-angle, H, W)
-        f = [t.contiguous() for t in sampling.zeros_factors((H, W), gx, gy)]
-        ct1 = torch.rand((3 * b, 1, H, W), generator=gen, device=device)
-        splat_case(ct1, gx, gy, f, (H, W), None, None, "zeros",
+        gx, gy = rotation_grid(-angle, h, w)
+        f = [t.contiguous() for t in sampling.zeros_factors((h, w), gx, gy)]
+        ct1 = torch.rand((3 * b, 1, h, w), generator=gen, device=device)
+        splat_case(ct1, gx, gy, f, (h, w), None, None, "zeros",
                    "zeros mode (SADC restore, direct path)",
                    "mono_vifi_tpu/ops/pallas/splat.py:166", path=True, phase=phase)
     out["bilinear_splat"] = variants[0] | {"variants": variants[1:]}
@@ -548,7 +642,9 @@ def kernel_phase(device):
     cases += [(N_TEST, (0, 2), torch.bfloat16, C, h, w, "smooth", DRIVER_EVAL)
               for C, h, w in levels]
     cases += [(b, TABLE_USES, torch.bfloat16, C, h, w, "smooth", label)
-              for label, _, b, bl in KERNEL_STEPS for C, h, w in bl]
+              for label, _, b, bl, _ in KERNEL_STEPS for C, h, w in bl]
+    cases += [(b, (0, 2), torch.bfloat16, C, h, w, "smooth", label)
+              for label, b, bl in DRIVER_EVALS for C, h, w in bl]
     cases += [(BI, (0, 2), torch.float32, C, h, w, "smooth", label)
               for label, _, bl, _ in BACKBONE_INFERENCE for C, h, w in bl]
     cases += [(1, (0, 2), torch.float32, C, h, w, "smooth", TEST_VIDEO) for C, h, w in levels]
@@ -600,39 +696,13 @@ def kernel_phase(device):
     return out
 
 
-def make_batch(device, B=B):
-    import torch
-
-    rng = np.random.default_rng(0)
-    K = np.zeros((B, 4, 4), np.float32)
-    K[:, 0, 0], K[:, 1, 1] = 0.58 * W, 1.92 * H
-    K[:, 0, 2], K[:, 1, 2] = 0.5 * W, 0.5 * H
-    K[:, 2, 2] = K[:, 3, 3] = 1
-    w_box, h_box = round(W / 1.5), round(H / 1.5)
-    batch = {
-        k: rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8)
-        for k in ("color_n1", "color_0", "color_p1", "color_aug_n1", "color_aug_0",
-                  "color_aug_p1", "color_affine_n1", "color_affine_0",
-                  "color_affine_p1", "color_affine_aug_0")
-    }
-    batch.update(
-        K=K, inv_K=np.linalg.pinv(K).astype(np.float32),
-        Rc=np.tile(np.eye(3, dtype=np.float32), (B, 1, 1)),
-        ratio_local=np.full((B, 1), 1.5, np.float32),
-        angle=rng.uniform(-5.0, 5.0, (B,)).astype(np.float32),
-        box=np.tile(np.array([2, 1, w_box, h_box], np.float32), (B, 1)),
-        valid_mask_rec=np.full((B, H, W, 1), 255, np.uint8),
-        valid_mask_cons=np.full((B, H, W, 1), 255, np.uint8),
-    )
-    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-
-
 def step_phase(device, config=None, label="step", card=""):
     """Phases 4 and 5: the full-width step, counted, then kernels vs plain;
     ResNet18 as bench.py's, or from `config` through parse_options, as a
-    user runs it (phase 8)."""
+    user runs it (phases 8, 17 and 18), on a batch at the config's size."""
     import torch
 
+    from mono_vifi_tpu_torch.bench import make_batch
     from mono_vifi_tpu_torch.config import Options, parse_options
     from mono_vifi_tpu_torch.ops import cuda
     from mono_vifi_tpu_torch.training import monovifi as M
@@ -646,11 +716,11 @@ def step_phase(device, config=None, label="step", card=""):
         log(f"{label}: {cfg.exp_name}, {cfg.backbone} {cfg.width}x{cfg.height}, batch "
             f"{cfg.batch_size}, affine {cfg.use_affine}, {cfg.fuse_model_type}, "
             f"{cfg.compute_dtype}, VFI {cfg.vfi_train_scale}")
-    nb = cfg.batch_size
+    nb, h, w = cfg.batch_size, cfg.height, cfg.width
     state = M.create_train_state(cfg, seed=0, steps_per_epoch=3981, device=device)
     step = M.MonoViFiStep(state.bundle, device=device)
     train_step = step.make_train_step()
-    batch = make_batch(device, nb)
+    batch = make_batch(nb, h, w, device)
     gen = torch.Generator(device=device).manual_seed(1)
     for _ in range(2):
         train_step(state, batch, gen)
@@ -682,7 +752,7 @@ def step_phase(device, config=None, label="step", card=""):
     # of the pose net's parameters, which reaches the loss through the
     # photometric warps' grid gradient
     noise = {k: torch.randn(s, generator=gen, device=device)
-             for k, s in step.noise_shapes(nb, H, W).items()}
+             for k, s in step.noise_shapes(nb, h, w).items()}
     noise.update(step.draw_drop_masks(nb, gen))
     pose_params = [q for role in ("pose_encoder", "pose")
                    for q in state.bundle.role(role).parameters()]
@@ -783,41 +853,6 @@ def inference_phase(device, backbone="ResNet18", single=True, card=""):
         if not all(math.isfinite(v) for v in metrics.values()):
             raise AssertionError(f"non-finite {label} metrics {metrics}")
     return launches, shapes
-
-
-def write_kitti_tree(root, n_frames: int = 62, n_test: int = N_TEST):
-    """A KITTI-raw drive of uint8 PNG frames at the native 1242x375 (a
-    smooth colour field panning across the frames, plus noise, from a numpy
-    seed), train and test split files and sparse synthetic ground truths;
-    -> the splits root."""
-    import os
-
-    from PIL import Image
-
-    rng = np.random.default_rng(5)
-    drive = "2011_09_26/2011_09_26_drive_0001_sync"
-    img_dir = os.path.join(root, "kitti", drive, "image_02", "data")
-    os.makedirs(img_dir)
-    ys, xs = np.mgrid[0:375, 0:1242 + 4 * n_frames] / 60.0
-    ph = rng.uniform(0, 2 * np.pi, (3, 2))
-    field = np.stack([127.5 + 100.0 * np.sin(xs + ph[c, 0]) * np.cos(ys + ph[c, 1])
-                      for c in range(3)], -1).astype(np.uint8)
-    for i in range(n_frames):  # the camera pans 4 pixels a frame
-        img = field[:, 4 * i:4 * i + 1242] + rng.integers(0, 16, (375, 1242, 3), np.uint8)
-        Image.fromarray(img).save(os.path.join(img_dir, f"{i:010d}.png"), compress_level=1)
-    splits = os.path.join(root, "splits")
-    lines = [f"{drive} {i} l" for i in range(1, n_frames - 1)]
-    for split, files in (("smoke", lines), ("eigen", lines[:n_test])):
-        os.makedirs(os.path.join(splits, "kitti", split))
-        for kind in ("train", "test"):
-            with open(os.path.join(splits, "kitti", split, f"{kind}_files.txt"), "w") as f:
-                f.write("\n".join(files))
-    gts = [rng.uniform(1.0, 80.0, (375, 1242)).astype(np.float32) for _ in range(n_test)]
-    for g in gts:
-        g[rng.random(g.shape) < 0.8] = 0.0  # sparse, like projected lidar
-    np.savez_compressed(os.path.join(splits, "kitti", "eigen", "gt_depths.npz"),
-                        data=np.array(gts, dtype=object))
-    return splits
 
 
 def driver_phase(card: str, tmp: str) -> dict:
@@ -944,6 +979,65 @@ def driver_phase(card: str, tmp: str) -> dict:
             "eval_shapes": eval_shapes}
 
 
+def vfi_step_check(label: str, state, step, batch, crop, card: str, timed: int):
+    """The VFI step on one batch: 2 warm-up and `timed` timed steps
+    (ms/step, samples/s, peak memory; `bilinear_sample` and
+    `bilinear_sample_bwd` launched once a step at the crop), then the loss
+    and the gradient norm with the kernels against every plain version on
+    the same weights and batch (rel 1e-3: the flows' gradient comes through
+    the image warps' grid gradient). -> (launches, launches by shape) of
+    the timed steps."""
+    import torch
+
+    from mono_vifi_tpu_torch.ops import cuda
+    from mono_vifi_tpu_torch.training.monovifi import prepare_batch
+    from mono_vifi_tpu_torch.training.optim import global_norm
+
+    n = batch["img0"].shape[0]
+    for _ in range(2):
+        step(state, batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        metrics, _ = step(state, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches, shapes = dict(cuda.LAUNCHES), dict(cuda.LAUNCH_SHAPES)
+    loss, psnr, gnorm = (float(metrics[k]) for k in ("loss", "psnr", "grad_norm"))
+    log(f"{label}: {dt / timed * 1e3:.1f} ms/step, {n * timed / dt:.2f} samples/s, loss "
+        f"{loss:.4f}, psnr {psnr:.2f}, grad_norm {gnorm:.4f}, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
+    log(f"{label}: launches over {timed} steps: {launches}")
+    for (name, shape), count in sorted(shapes.items()):
+        log(f"  {name} at {shape}: {count}")
+    if not all(math.isfinite(x) for x in (loss, psnr, gnorm)):
+        raise AssertionError(f"non-finite {label}: {metrics}")
+    for name in ("bilinear_sample", "bilinear_sample_bwd"):
+        if shapes.get((name, (2 * n, 3) + tuple(crop)), 0) != timed:
+            raise AssertionError(f"{name} not launched once a step at the {label} crop")
+
+    b = prepare_batch(batch, "cuda")
+
+    def loss_and_grad_norm():
+        state.optimizer.zero_grad(set_to_none=True)
+        out = state.module(b["img0"], b["img2"], b["embt"].reshape(-1, 1, 1, 1),
+                           imgt=b["img1"])
+        out["loss"].backward()
+        return out["loss"].item(), global_norm([p.grad for p in state.params]).item()
+
+    got = loss_and_grad_norm()
+    with cuda.plain_versions():
+        ref = loss_and_grad_norm()
+    for term, x, y in zip(("loss", "gradient norm"), got, ref):
+        rel = abs(x - y) / max(abs(y), 1e-12)
+        log(f"{label} {term}: kernels {x:.6f} plain {y:.6f} rel {rel:.2e} (tol 1e-3)")
+        if not (math.isfinite(x) and rel <= 1e-3):
+            raise AssertionError(f"{label} {term} differs: {x} vs {y}")
+    return launches, shapes
+
+
 def vfi_phase(card: str, tmp: str):
     """Phase 10: VFI training from configs/vfi/IFRNet_L_KITTI.txt at full
     width (IFRNet-L, batch 16, crop 160x576, bf16; random init from the
@@ -961,10 +1055,7 @@ def vfi_phase(card: str, tmp: str):
     from mono_vifi_tpu_torch import train_vfi as TV
     from mono_vifi_tpu_torch.config import parse_options
     from mono_vifi_tpu_torch.data import device_prefetch
-    from mono_vifi_tpu_torch.ops import cuda
     from mono_vifi_tpu_torch.training import vfi as V
-    from mono_vifi_tpu_torch.training.monovifi import prepare_batch
-    from mono_vifi_tpu_torch.training.optim import global_norm
 
     # the 60 lines of phase 7's split twice: 7 steps of 16 a epoch
     splits = os.path.join(tmp, "splits")
@@ -985,55 +1076,12 @@ def vfi_phase(card: str, tmp: str):
     a = TV.VFITrainer(cfg)
 
     # the step on the loader's first batch: 2 warm-up and 5 timed steps of a
-    # second state from the same seed, counted
+    # second state from the same seed, counted, then kernels vs plain
     state = V.create_vfi_state(cfg, max(cfg.seed, 0), a.steps_per_epoch, "cuda")
     step = V.make_vfi_train_step(cfg.clip_grad)
     batch = next(iter(device_prefetch(a.loader, "cuda")))
-    for _ in range(2):
-        step(state, batch)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    cuda.reset_launch_counts()
-    t0 = time.perf_counter()
-    for _ in range(5):
-        metrics, _ = step(state, batch)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches, shapes = dict(cuda.LAUNCHES), dict(cuda.LAUNCH_SHAPES)
-    loss, psnr, gnorm = (float(metrics[k]) for k in ("loss", "psnr", "grad_norm"))
-    log(f"{VFI_STEP}: {dt / 5 * 1e3:.1f} ms/step, {VFI_B * 5 / dt:.2f} samples/s, loss "
-        f"{loss:.4f}, psnr {psnr:.2f}, grad_norm {gnorm:.4f}, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB {card}")
-    log(f"{VFI_STEP}: launches over 5 steps: {launches}")
-    for (name, shape), count in sorted(shapes.items()):
-        log(f"  {name} at {shape}: {count}")
-    if not all(math.isfinite(x) for x in (loss, psnr, gnorm)):
-        raise AssertionError(f"non-finite VFI step: {metrics}")
-    for name in ("bilinear_sample", "bilinear_sample_bwd"):
-        if shapes.get((name, (2 * VFI_B, 3) + VFI_CROP), 0) != 5:
-            raise AssertionError(f"{name} not launched once a step at the VFI crop")
-
-    # kernels vs every plain version on the same weights and batch: the loss
-    # and the gradient norm (the flows' gradient comes through the image
-    # warps' grid gradient)
-    b = prepare_batch(batch, "cuda")
-
-    def loss_and_grad_norm():
-        state.optimizer.zero_grad(set_to_none=True)
-        out = state.module(b["img0"], b["img2"], b["embt"].reshape(-1, 1, 1, 1),
-                           imgt=b["img1"])
-        out["loss"].backward()
-        return out["loss"].item(), global_norm([p.grad for p in state.params]).item()
-
-    got = loss_and_grad_norm()
-    with cuda.plain_versions():
-        ref = loss_and_grad_norm()
-    for term, x, y in zip(("loss", "gradient norm"), got, ref):
-        rel = abs(x - y) / max(abs(y), 1e-12)
-        log(f"{VFI_STEP} {term}: kernels {x:.6f} plain {y:.6f} rel {rel:.2e} (tol 1e-3)")
-        if not (math.isfinite(x) and rel <= 1e-3):
-            raise AssertionError(f"VFI step {term} differs: {x} vs {y}")
-    del state, step, batch, b
+    launches, shapes = vfi_step_check(VFI_STEP, state, step, batch, VFI_CROP, card, 5)
+    del state, step, batch
 
     # the driver: epoch 0 (7 steps; a checkpoint after step 5), a trainer
     # resumed from it, bit for bit, which takes steps 6 and 7
@@ -1177,7 +1225,9 @@ def ddp_batches(device):
     frames panning 4 pixels, at the KITTI crop)."""
     import torch
 
-    batch = make_batch(device, B)
+    from mono_vifi_tpu_torch.bench import make_batch
+
+    batch = make_batch(B, H, W, device)
     rng = np.random.default_rng(12)
     for k, v in batch.items():
         if v.dtype == torch.uint8 and v.shape[-1] == 3:
@@ -1557,11 +1607,12 @@ def remat_phase(card: str, device) -> None:
 
     import torch
 
+    from mono_vifi_tpu_torch.bench import make_batch
     from mono_vifi_tpu_torch.training import monovifi as M
     from mono_vifi_tpu_torch.training.optim import global_norm
 
     cfg, _ = ddp_configs(B, 2 * DDP_VFI_B, device)
-    batch = make_batch(device, B)
+    batch = make_batch(B, H, W, device)
     out = {}
     for remat in (False, True):
         state = M.create_train_state(dataclasses.replace(cfg, encoder_remat=remat), 0,
@@ -1605,21 +1656,272 @@ def remat_phase(card: str, device) -> None:
     if not (worst <= 1e-3 and got[2] == ref[2] == {1}):
         raise AssertionError(f"remat BatchNorm statistics: rel {worst}, moved {got[2]}")
 
+def bench_phase() -> dict:
+    """Phase 15: the port's bench as a user runs it (`python -m
+    mono_vifi_tpu_torch.bench`, cudnn.benchmark on), the default ResNet18
+    KITTI-MR step, then `--hr`: each prints its windows' line and its JSON
+    record; every kernel launched in each run (the counts set to 0 just
+    before it). Then the default once more through `bench.run` alone, with
+    cudnn.benchmark off as in every other phase: the autotuner's effect.
+    -> {"bench": (counts, by shape), "bench --hr": ...}: phase 4's shapes
+    and the HR ResNet18 step's."""
+    import torch
+
+    from mono_vifi_tpu_torch import bench
+    from mono_vifi_tpu_torch.ops import cuda
+
+    out = {}
+    for argv in ([], ["--hr"]):
+        torch.cuda.empty_cache()
+        cuda.reset_launch_counts()
+        try:
+            rec = bench.main(argv)
+        finally:
+            torch.backends.cudnn.benchmark = False
+        launches = dict(cuda.LAUNCHES)
+        out[" ".join(["bench"] + argv)] = (launches, dict(cuda.LAUNCH_SHAPES))
+        log(f"bench {' '.join(argv) or '(default)'}: launches over its 32 steps {launches}")
+        if not (math.isfinite(rec["value"]) and rec["tflop_per_step"] > 0):
+            raise AssertionError(f"bench {argv}: {rec}")
+        missing = [k for k, v in launches.items() if v <= 0]
+        if missing:
+            raise AssertionError(f"kernels not launched in the bench {argv}: {missing}")
+    torch.cuda.empty_cache()
+    rec = bench.run(bench.bench_options([]), "cuda")
+    log(f"bench (default) with cudnn.benchmark off: {rec['value']:.2f} samples/s")
+    return out
+
+
+def convergence_phase(card: str) -> tuple:
+    """Phase 16: the port's convergence smoke at its command line's defaults
+    (`python -m mono_vifi_tpu_torch.convergence_smoke`: 300 steps at 96x320,
+    batch 2, bf16, shared_all, tiny VFI, lr 2e-4; the port's random init):
+    the JSON line, both abs_rel numbers, every kernel launched; the loss
+    must fall, loss_last10 < 0.85 * loss_first10 (the criterion of
+    tests/test_convergence.py's bf16 test); a trajectory row every 50
+    steps. -> (counts, by shape)."""
+    import torch
+
+    from mono_vifi_tpu_torch import convergence_smoke as C
+    from mono_vifi_tpu_torch.ops import cuda
+
+    torch.cuda.empty_cache()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, _, b, _, (h, w) = CONVERGENCE
+    out = C.run(steps=300, H=h, W=w, B=b, compute_dtype="bfloat16", log_every=25,
+                device="cuda", trace_every=50)
+    dt = time.perf_counter() - t0
+    launches, shapes = dict(cuda.LAUNCHES), dict(cuda.LAUNCH_SHAPES)
+    for step, err, lo, hi, loss in out.pop("trace"):
+        log(f"convergence step {step}: abs_rel {err:.4f}, disparity {lo:.4g} to {hi:.4g}"
+            + (f", mean loss_base {loss:.5f} since the last row" if loss is not None else ""))
+    log(json.dumps({"metric": "convergence_smoke", **out}))
+    log(f"convergence: 300 steps in {dt:.1f} s ({card}); loss_base {out['loss_first10']:.5f} "
+        f"-> {out['loss_last10']:.5f} (gate: below 0.85 x the first); abs_rel "
+        f"{out['abs_rel_initial']:.4f} -> {out['abs_rel_final']:.4f} (printed, not gated); "
+        f"launches {launches}")
+    if not out["loss_last10"] < 0.85 * out["loss_first10"]:
+        raise AssertionError(f"convergence: the loss did not fall enough: {out}")
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise AssertionError(f"kernels not launched in the convergence smoke: {missing}")
+    return launches, shapes
+
+
+def config_driver_phase(card: str, tmp: str, label: str, eval_label: str, argv: list,
+                        pretrained: str | None = None) -> dict:
+    """Phases 17-18: the real `Trainer` of a KITTI-HR or Cityscapes config
+    at its full width on a synthetic tree in `tmp` (`argv`: the config and
+    its data paths): with `pretrained`, the weights of that `model_0.pth`
+    through `--pretrained_path`, every role's keys those of the file, none
+    missing or unexpected, each tensor equal bit for bit; one epoch, its
+    single- and multi-frame evaluation (the multi-frame disparities with
+    the kernels against every plain version, max abs error 1e-5) and the
+    epoch-end save. -> {label: the steps' (launches, by shape), eval_label:
+    the evaluation's}."""
+    import torch
+
+    from mono_vifi_tpu_torch import train as T
+    from mono_vifi_tpu_torch.config import parse_options
+    from mono_vifi_tpu_torch.ops import cuda
+
+    T.SPLITS_DIR = os.path.join(tmp, "splits")
+    cfg = parse_options(argv + [
+        "--log_dir", os.path.join(tmp, "logs"), "--num_epochs", "1", "--save_frequency",
+        "1000", "--log_frequency", "1", "--weights_init", "scratch", "--device", "cuda",
+        "--resume", "False"] + (["--pretrained_path", pretrained] if pretrained else []))
+    log(f"{label}: {cfg.exp_name}, {cfg.dataset}, {cfg.backbone} {cfg.width}x{cfg.height}, "
+        f"batch {cfg.batch_size}, affine {cfg.use_affine}, {cfg.fuse_model_type}, "
+        f"{cfg.compute_dtype}, VFI {cfg.vfi_train_scale} / {cfg.vfi_test_scale}")
+    torch.cuda.empty_cache()
+    t = T.Trainer(cfg)
+    if pretrained:
+        saved = torch.load(pretrained, map_location="cpu", weights_only=True)
+        roles = t.bundle.trainable_roles()
+        for role, m in roles.items():
+            sd = m.state_dict()
+            if role not in saved or set(saved[role]) != set(sd):
+                raise AssertionError(f"{label}: {role} keys differ from {pretrained}")
+            for k, v in sd.items():
+                if not torch.equal(v.cpu(), saved[role][k]):
+                    raise AssertionError(f"{label}: {role}.{k} differs from {pretrained}")
+        kept = t.load_pretrained(pretrained)
+        if kept:
+            raise AssertionError(f"{label}: load_pretrained kept {kept}")
+        log(f"{label}: {sum(len(saved[r]) for r in roles)} tensors of {len(roles)} roles "
+            f"loaded from {pretrained} bit for bit; load_pretrained reports no key missing "
+            "or of another shape, and the file has no key the model lacks")
+        del saved
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    t.run_epoch(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps, step_shapes = dict(cuda.LAUNCHES), dict(cuda.LAUNCH_SHAPES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cuda.reset_launch_counts()
+    t.end_epoch(0)
+    evals, eval_shapes = dict(cuda.LAUNCHES), dict(cuda.LAUNCH_SHAPES)
+    dk = t._predict_disps(multi_frame=True)
+    with cuda.plain_versions():
+        dp = t._predict_disps(multi_frame=True)
+    err = float(np.abs(dk - dp).max())
+    log(f"{label}: multi-frame evaluation disparities {dk.shape}, kernels vs plain: max abs "
+        f"error {err:.3e} (tol 1e-5)")
+    hist, results = t.history, dict(t.eval_results)
+    written = os.path.exists(os.path.join(t.log_path, "models", "model_0.pth"))
+    t.close()
+    del t
+    data = [h["data_s"] * 1e3 for h in hist]
+    step = [h["step_s"] * 1e3 for h in hist]
+    log(f"{label} ({card}): {len(hist)} steps in {wall:.2f} s ({len(hist) * cfg.batch_size / wall:.2f} "
+        f"samples/s over the epoch, cold first step included); data wait {np.mean(data):.1f} "
+        f"ms/step, step {np.mean(step):.1f} ms/step (steps 2-: {np.mean(step[1:]):.1f}); "
+        f"peak memory {peak:.2f} GiB; losses {[round(h['loss'], 4) for h in hist]}")
+    log(f"{label}: launches in the steps {steps}; in the evaluation {evals}")
+    for (name, shape), count in sorted(step_shapes.items()):
+        log(f"  {name} at {shape}: {count}")
+    if not err <= 1e-5:
+        raise AssertionError(f"{label}: multi-frame disparities differ: {err}")
+    if not written:
+        raise AssertionError(f"{label}: no models/model_0.pth")
+    if len(hist) < 2 or not all(math.isfinite(h["loss"]) for h in hist):
+        raise AssertionError(f"{label}: losses {[h['loss'] for h in hist]}")
+    if len(results) != 2 or not all(math.isfinite(v) for r in results.values()
+                                    for v in r.values()):
+        raise AssertionError(f"{label}: evaluations {results}")
+    missing = [k for k, v in steps.items() if v <= 0]
+    if missing or evals["bilinear_sample_table"] <= 0:
+        raise AssertionError(f"{label}: kernels not launched: {missing}, evaluation {evals}")
+    return {label: (steps, step_shapes), eval_label: (evals, eval_shapes)}
+
+
+def vfi_configs_phase(card: str, tmp: str) -> dict:
+    """Phase 19: configs/vfi/IFRNet_L_CS.txt on phase 18's Cityscapes tree
+    and IFRNet_S_KITTI.txt on phase 7's KITTI tree (phase 10's split) through
+    `VFITrainer` (parsed as a user runs them; random init from the config's
+    seed): the trainer's own state and step on its loader's first batch
+    (`vfi_step_check`, 3 timed steps). -> {label: (launches, by shape)}."""
+    import torch
+
+    from mono_vifi_tpu_torch import train_vfi as TV
+    from mono_vifi_tpu_torch.config import parse_options
+    from mono_vifi_tpu_torch.data import device_prefetch
+
+    TV.SPLITS_DIR = os.path.join(tmp, "splits")
+    out = {}
+    for label, config, crop in VFI_CONFIGS:
+        cfg = parse_options([
+            "-c", config, "--data_path", os.path.join(tmp, "kitti"), "--data_path_pre",
+            os.path.join(tmp, "cityscapes_pre"), "--log_dir", os.path.join(tmp, "vfi_logs"),
+            "--split", "vfi", "--pretrained_path", "", "--resume", "False", "--device", "cuda",
+        ])
+        log(f"{label}: {cfg.exp_name}, {cfg.dataset}, IFRNet-{cfg.vfi_scale} "
+            f"{cfg.width}x{cfg.height} cropped to {crop}, batch {cfg.batch_size}, "
+            f"{cfg.compute_dtype}")
+        torch.cuda.empty_cache()
+        a = TV.VFITrainer(cfg)
+        batch = next(iter(device_prefetch(a.loader, "cuda")))
+        out[label] = vfi_step_check(label, a.state, a.train_step, batch, crop, card, 3)
+        a.close()
+        del a, batch
+    return out
+
+
+def attach_launches(kernels: dict, step: tuple, inference: tuple, driver: dict, extra: dict,
+                    bench_counts: dict) -> None:
+    """Give each variant of phase 3's kernels the counts of the path it
+    belongs to, (counts, by shape) each: the training step's (phase 4, and
+    the driver's 12 steps as driver_launches), the multi-frame inference's
+    (phase 6), the driver's evaluation (phase 7) or another path named by
+    its "phase" in `extra` (another backbone's step or inference, VFI
+    training, test_video, the two-rank steps, the convergence smoke, the HR
+    and Cityscapes paths: phases 8-19); a variant on no path carries its
+    kernel's phase-4 count. The bench's runs (phase 15) go through phase 4's
+    shapes and the HR ResNet18 step's: their counts stand beside those.
+    Raises where a variant's path did not launch its kernel at its shape."""
+    def from_bench(v, key, name, shape):
+        counts, by_shape = bench_counts[key]
+        key = key.replace(" --", "_")
+        v[f"{key}_launches"] = counts[name]
+        v[f"{key}_launches_at_shape"] = by_shape.get((name, shape), 0)
+        if v[f"{key}_launches_at_shape"] <= 0:
+            raise AssertionError(f"{name} not launched at {shape} in the {key} run")
+
+    for name, e in kernels.items():
+        for v in [e] + e.get("variants", []):
+            path = v.get("path")
+            if "phase" in v:
+                counts, by_shape = extra[v["phase"]]
+                v["launches"] = counts[name]
+                shape = v.pop("launch_shape")
+                v["launches_at_shape"] = by_shape.get((name, shape), 0)
+                if v["launches_at_shape"] <= 0:
+                    raise AssertionError(f"{name} not launched at {v['shape']} on the "
+                                         f"{v['phase']} path")
+                if v["phase"] == HR_STEPS[0][0]:  # the same shapes in the HR Trainer
+                    counts, by_shape = extra[HR_DRIVER]
+                    v["driver_launches"] = counts[name]
+                    v["driver_launches_at_shape"] = by_shape.get((name, shape), 0)
+                    from_bench(v, "bench --hr", name, shape)
+                continue
+            if path == "multi-frame inference":
+                counts, by_shape = inference
+            elif path == DRIVER_EVAL:
+                counts, by_shape = driver["eval"], driver["eval_shapes"]
+            else:
+                counts, by_shape = step
+            v["launches"] = counts[name]
+            if "launch_shape" not in v:
+                continue
+            shape = v.pop("launch_shape")
+            v["launches_at_shape"] = by_shape.get((name, shape), 0)
+            if path in ("multi-frame inference", DRIVER_EVAL):
+                if v["launches_at_shape"] <= 0:
+                    raise AssertionError(f"{name} not launched at {shape} on the {path}")
+            else:
+                v["driver_launches"] = driver["steps"][name]
+                v["driver_launches_at_shape"] = driver["step_shapes"].get((name, shape), 0)
+                from_bench(v, "bench", name, shape)
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from mono_vifi_tpu_torch.bench import card_name
+    from mono_vifi_tpu_torch.data.synthetic import write_cityscapes_tree, write_kitti_tree
     from mono_vifi_tpu_torch.ops.cuda import build
 
     device = torch.device("cuda")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    ).stdout.strip().splitlines()[0]
+    card = card_name()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)}")
@@ -1641,7 +1943,7 @@ def main() -> int:
         # phases 8-11: the other backbones' steps and inference, VFI training
         # and the test entry points, each with its own counts (set to 0 just
         # before the path runs, read just after)
-        for label, config, _, _ in BACKBONE_STEPS:
+        for label, config, *_ in BACKBONE_STEPS:
             t0 = time.perf_counter()
             extra[label] = step_phase(device, config, label, card)
             log(f"{label}: phase took {time.perf_counter() - t0:.1f} s")
@@ -1661,40 +1963,50 @@ def main() -> int:
             t0 = time.perf_counter()
             phase()
             log(f"{label}: phase took {time.perf_counter() - t0:.1f} s")
-    # each variant's counts are those of the path it belongs to: the training
-    # step's (phase 4, and the driver's 12 steps as driver_launches), the
-    # multi-frame inference's (phase 6), the driver's evaluation (phase 7) or
-    # another path named by its "phase" (another backbone's step or
-    # inference, VFI training, test_video, the two-rank steps: phases 8-12);
-    # a variant on no path carries its kernel's phase-4 count
-    for name, e in kernels.items():
-        for v in [e] + e.get("variants", []):
-            path = v.get("path")
-            if "phase" in v:
-                counts, by_shape = extra[v["phase"]]
-                v["launches"] = counts[name]
-                v["launches_at_shape"] = by_shape.get((name, v.pop("launch_shape")), 0)
-                if v["launches_at_shape"] <= 0:
-                    raise AssertionError(f"{name} not launched at {v['shape']} on the "
-                                         f"{v['phase']} path")
-                continue
-            if path == "multi-frame inference":
-                counts, by_shape = inference, inference_shapes
-            elif path == DRIVER_EVAL:
-                counts, by_shape = driver["eval"], driver["eval_shapes"]
-            else:
-                counts, by_shape = launches, shapes
-            v["launches"] = counts[name]
-            if "launch_shape" not in v:
-                continue
-            shape = v.pop("launch_shape")
-            v["launches_at_shape"] = by_shape.get((name, shape), 0)
-            if path in ("multi-frame inference", DRIVER_EVAL):
-                if v["launches_at_shape"] <= 0:
-                    raise AssertionError(f"{name} not launched at {shape} on the {path}")
-            else:
-                v["driver_launches"] = driver["steps"][name]
-                v["driver_launches_at_shape"] = driver["step_shapes"].get((name, shape), 0)
+        # phases 15-16: the bench and the convergence smoke, each run's counts
+        # kept for the kernels' line
+        t0 = time.perf_counter()
+        bench_counts = bench_phase()
+        log(f"bench: phase took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        extra[CONVERGENCE[0]] = convergence_phase(card)
+        log(f"convergence: phase took {time.perf_counter() - t0:.1f} s")
+        # phases 17-19: the KITTI-HR and Cityscapes configurations, bare steps
+        # and Trainers (HR from phase 7's weights), and the other VFI configs
+        for label, config, *_ in HR_STEPS:
+            t0 = time.perf_counter()
+            extra[label] = step_phase(device, config, label, card)
+            log(f"{label}: phase took {time.perf_counter() - t0:.1f} s")
+        with open(os.path.join(tmp, "splits", "kitti", "smoke", "train_files.txt")) as f:
+            lines = f.read().split("\n")
+        os.makedirs(os.path.join(tmp, "splits", "kitti", "hr"))
+        with open(os.path.join(tmp, "splits", "kitti", "hr", "train_files.txt"), "w") as f:
+            f.write("\n".join(lines[:3 * HR_STEPS[0][2]]))  # an epoch of 3 steps
+        t0 = time.perf_counter()
+        extra.update(config_driver_phase(
+            card, tmp, HR_DRIVER, DRIVER_EVALS[0][0],
+            ["-c", HR_STEPS[0][1], "--data_path", os.path.join(tmp, "kitti"), "--split", "hr",
+             "--eval_split", "eigen"],
+            pretrained=os.path.join(tmp, "logs", "ResNet18_KITTI_MR", "models", "model_0.pth")))
+        log(f"{HR_DRIVER}: phase took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        write_cityscapes_tree(tmp, n_train=3 * CS_DRIVER[2], n_test=N_CS_TEST)
+        log(f"synthetic Cityscapes tree written in {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        extra.update(config_driver_phase(
+            card, tmp, CS_DRIVER[0], DRIVER_EVALS[1][0],
+            ["-c", CS_DRIVER[1], "--data_path", os.path.join(tmp, "cityscapes"),
+             "--data_path_pre", os.path.join(tmp, "cityscapes_pre")]))
+        log(f"{CS_DRIVER[0]}: phase took {time.perf_counter() - t0:.1f} s")
+        for label, config, *_ in CS_STEPS:
+            t0 = time.perf_counter()
+            extra[label] = step_phase(device, config, label, card)
+            log(f"{label}: phase took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        extra.update(vfi_configs_phase(card, tmp))
+        log(f"VFI configs: phase took {time.perf_counter() - t0:.1f} s")
+    attach_launches(kernels, (launches, shapes), (inference, inference_shapes), driver, extra,
+                    bench_counts)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the build to the end")
     log(json.dumps({"kernels": list(kernels.values())}))
     log(card)

@@ -238,12 +238,13 @@ class Trainer:
         logging.info("Resuming from %s", self.ckpt_path)
         self.ep_start, self.batch_start = ckpt_lib.load_checkpoint(self.ckpt_path, self.state)
 
-    def load_pretrained(self, path: str):
+    def load_pretrained(self, path: str) -> list[str]:
+        """-> the keys that kept their init values (missing from the file
+        or of another shape), each also named in a warning."""
         logging.info("Loading pretrained model from %s", path)
         if path.endswith(".pth"):
-            ckpt_lib.load_reference_pth(path, self.bundle)
-        else:
-            ckpt_lib.load_jax_weights(path, self.bundle)
+            return ckpt_lib.load_reference_pth(path, self.bundle)
+        return ckpt_lib.load_jax_weights(path, self.bundle)
 
     def save_model(self, epoch: int, batch_idx: int = 0, ep_end: bool = False):
         """Rank 0 writes; every rank waits until it has."""

@@ -55,13 +55,14 @@ def count_params(*modules: nn.Module) -> int:
     return sum(p.numel() for p in seen.values())
 
 
-def flops(fn, *args) -> float:
+def flops(fn, *args, grad: bool = False) -> float:
     """FLOPs of one call of `fn(*args)` as counted by
-    torch.utils.flop_counter (matrix products and convolutions; the port's
-    own kernels are not counted). The call runs under torch.no_grad()."""
+    torch.utils.flop_counter (matrix products and convolutions, the
+    backward's among them; the port's own kernels are not counted). The
+    call runs under torch.no_grad() unless `grad` (a training step)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     counter = FlopCounterMode(display=False)
-    with torch.no_grad(), counter:
+    with torch.set_grad_enabled(grad), counter:
         fn(*args)
     return float(counter.get_total_flops())

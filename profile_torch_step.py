@@ -3,15 +3,17 @@
 `--path train` (the default) builds the training step of `--config` (default
 configs/resnet18/ResNet18_KITTI_MR.txt, the step chip_smoke.py drives:
 ResNet18, 640x192, batch 10, frozen IFRNet-L, affine, shared_encoder, bf16;
-the LiteMono and D-HRNet configs give chip_smoke.py's phase 8 steps), parsed
-as a user runs it, with random weights from a seed; `--path single` and
-`--path multi` build the inference paths chip_smoke.py drives (the config's
-backbone at 640x192 in f32 with TF32 off, frozen IFRNet-S, batch 4 of uint8
+the other configs give chip_smoke.py's phase 8, 17 and 18 steps), parsed as
+a user runs it, with random weights from a seed, on a uint8 batch at the
+config's size; `--path single` and `--path multi` build the inference paths
+chip_smoke.py drives (the config's backbone at the config's size in f32
+with TF32 off, frozen IFRNet-S, batch 4 of uint8
 frames from a numpy seed, through the evaluation entry modules'
 `predict_disps` with flip post-processing and `predict_disps_mf`); `--path vfi`
 builds the VFI training step of `--config` (default
 configs/vfi/IFRNet_L_KITTI.txt, chip_smoke.py's phase 10: IFRNet-L, batch 16,
-the 160x576 crop, bf16) on a batch of frames from a numpy seed, and also
+the 160x576 crop, bf16; a Cityscapes config's crop is 176x480) on a batch of
+frames from a numpy seed, and also
 times the plain feature warps at the step's three levels, forward and
 forward + backward (CUDA events), as a share of the step's device time.
 `--world1` runs the training step as the one rank of an NCCL process group
@@ -37,7 +39,6 @@ from __future__ import annotations
 
 import argparse
 import re
-import subprocess
 import tempfile
 import time
 from collections import defaultdict
@@ -46,7 +47,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from chip_smoke import BI, H, VFI_CROP, W, make_batch
+from chip_smoke import BI
+from mono_vifi_tpu_torch.bench import card_name, make_batch
 
 # a kernel as the profiler names it: `[void ](anonymous namespace)::<name>...`
 # (the return type shows on templates only)
@@ -86,13 +88,14 @@ def train_call(dev, cfg):
 
     state = M.create_train_state(cfg, seed=0, steps_per_epoch=3981, device=dev)
     train_step = M.MonoViFiStep(state.bundle, device=dev).make_train_step()
-    batch = make_batch(dev, cfg.batch_size)
+    batch = make_batch(cfg.batch_size, cfg.height, cfg.width, dev)
     gen = torch.Generator(device=dev).manual_seed(1)
     return lambda: train_step(state, batch, gen), cfg.batch_size
 
 
-def inference_call(dev, backbone: str, multi: bool):
-    """-> (one inference batch through the entry module, frames per call)."""
+def inference_call(dev, cfg, multi: bool):
+    """-> (one inference batch of the config's backbone and size through the
+    entry module, frames per call)."""
     from mono_vifi_tpu_torch import evaluate_depth as ED
     from mono_vifi_tpu_torch import evaluate_depth_mf as EDM
     from mono_vifi_tpu_torch.config import Options
@@ -100,7 +103,8 @@ def inference_call(dev, backbone: str, multi: bool):
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = Options(backbone=backbone, height=H, width=W, compute_dtype="float32",
+    H, W = cfg.height, cfg.width
+    cfg = Options(backbone=cfg.backbone, height=H, width=W, compute_dtype="float32",
                   fuse_model_type="shared_encoder", vfi_test_scale="small")
     bundle = build_bundle(cfg, seed=0, device=dev, for_training=False)
     rng = np.random.default_rng(2)
@@ -113,6 +117,14 @@ def inference_call(dev, backbone: str, multi: bool):
     return lambda: ED.predict_disps(args, bundle, [batch["color_0"]]), BI
 
 
+def vfi_crop(cfg) -> tuple:
+    """The training crop of the VFI dataset class that `VFITrainer` reads
+    for the config's dataset."""
+    from mono_vifi_tpu_torch.data.vfi import CityscapesVFIDataset, KITTIVFIDataset
+
+    return (CityscapesVFIDataset if cfg.dataset == "cityscapes" else KITTIVFIDataset).crop_hw
+
+
 def vfi_call(dev, cfg):
     """-> (one VFI training step, samples per call)."""
     from mono_vifi_tpu_torch.training import vfi as V
@@ -121,7 +133,7 @@ def vfi_call(dev, cfg):
     step = V.make_vfi_train_step(cfg.clip_grad)
     rng = np.random.default_rng(3)
     n = cfg.batch_size
-    batch = {k: torch.from_numpy(rng.integers(0, 256, (n,) + VFI_CROP + (3,), np.uint8)).to(dev)
+    batch = {k: torch.from_numpy(rng.integers(0, 256, (n,) + vfi_crop(cfg) + (3,), np.uint8)).to(dev)
              for k in ("img0", "img1", "img2")}
     batch["embt"] = torch.full((n,), 0.5, device=dev)
     return lambda: step(state, batch), n
@@ -138,7 +150,7 @@ def feature_warp_ms(dev, cfg) -> list[tuple[tuple, float, float]]:
     from mono_vifi_tpu_torch.training.factory import compute_dtype
 
     dt = compute_dtype(cfg)
-    h, w = VFI_CROP[0], VFI_CROP[1] // 2  # the encoder's input: (1.0, 0.5) of the crop
+    h, w = vfi_crop(cfg)[0], vfi_crop(cfg)[1] // 2  # the encoder's input: (1.0, 0.5) of the crop
     out = []
     for lvl, c in enumerate(PYRAMID_CHANNELS[cfg.vfi_scale][:3]):
         shape = (2 * cfg.batch_size, c, h >> (lvl + 1), w >> (lvl + 1))
@@ -174,19 +186,14 @@ def main() -> None:
         args.config = ("configs/vfi/IFRNet_L_KITTI.txt" if path == "vfi"
                        else "configs/resnet18/ResNet18_KITTI_MR.txt")
     dev = torch.device("cuda")
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True,
-    ).stdout.strip().splitlines()[0])
+    print(card_name())
     from mono_vifi_tpu_torch.config import parse_options
 
     cfg = parse_options(["-c", args.config, "--weights_init", "scratch", "--device", "cuda"]
                         + (["--backbone", args.backbone] if args.backbone else []))
-    if (cfg.height, cfg.width) != (H, W):
-        raise ValueError(f"{args.config}: the profile runs at {W}x{H}")
     if path == "vfi":
         print(f"{args.config}: IFRNet-{cfg.vfi_scale}, batch {cfg.batch_size}, crop "
-              f"{VFI_CROP}, {cfg.compute_dtype}")
+              f"{vfi_crop(cfg)}, {cfg.compute_dtype}")
         call, n = vfi_call(dev, cfg)
     elif path == "train":
         print(f"{args.config}: {cfg.backbone}, batch {cfg.batch_size}"
@@ -200,7 +207,7 @@ def main() -> None:
         call, n = train_call(dev, cfg)
     else:
         print(f"{args.config}: {cfg.backbone}, batch {cfg.batch_size}")
-        call, n = inference_call(dev, cfg.backbone, path == "multi")
+        call, n = inference_call(dev, cfg, path == "multi")
     unit = "step" if path in ("train", "vfi") else "batch"
     for _ in range(2):
         call()

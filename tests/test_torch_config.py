@@ -1,13 +1,16 @@
 """The port's config parser against the JAX package's (mono_vifi_tpu/config.py),
-on every depth config the repo ships and a set of command-line overrides:
-the same value, field by field, for every field of the JAX `Options` (the
-port has one more, `device`). Also: the multi-card fields parse and are
-refused only where they cannot run, and the entry module's command line
-parses."""
+on every config the repo ships (the nine depth configs and the four VFI
+ones) and a set of command-line overrides: the same value, field by field,
+for every field of the JAX `Options` (the port has one more, `device`).
+Every depth config's model bundle builds at its widths, and every VFI
+config's IFRNet builds and takes a step. Also: the
+multi-card fields parse and are refused only where they cannot run, and
+the entry module's command line parses."""
 
 import dataclasses
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -18,6 +21,7 @@ from mono_vifi_tpu_torch.config import ENV_RENDEZVOUS, Options, check_port_optio
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CONFIGS = sorted(str(p.relative_to(ROOT)) for d in ("resnet18", "litemono", "dhrnet")
                  for p in (ROOT / "configs" / d).glob("*.txt"))
+VFI_CONFIGS = sorted(str(p.relative_to(ROOT)) for p in (ROOT / "configs" / "vfi").glob("*.txt"))
 
 OVERRIDES = [
     "--batch_size", "4", "--use_affine", "false", "--frame_ids", "0", "-1", "1",
@@ -31,8 +35,14 @@ def test_all_nine_depth_configs_are_found():
     assert len(CONFIGS) == 9
 
 
+def test_every_config_file_is_a_depth_or_vfi_config():
+    assert len(VFI_CONFIGS) == 4
+    assert sorted(CONFIGS + VFI_CONFIGS) == sorted(
+        str(p.relative_to(ROOT)) for p in (ROOT / "configs").rglob("*.txt"))
+
+
 @pytest.mark.parametrize("overrides", [False, True], ids=["file", "file+cli"])
-@pytest.mark.parametrize("config", CONFIGS)
+@pytest.mark.parametrize("config", CONFIGS + VFI_CONFIGS)
 def test_parse_options_matches_jax(config, overrides, monkeypatch):
     monkeypatch.chdir(ROOT)
     argv = ["-c", config] + (OVERRIDES if overrides else [])
@@ -41,6 +51,41 @@ def test_parse_options_matches_jax(config, overrides, monkeypatch):
         assert getattr(got, f.name) == getattr(ref, f.name), f.name
         assert type(getattr(got, f.name)) is type(getattr(ref, f.name)), f.name
     assert got.device == "cuda"
+
+
+@pytest.mark.parametrize("config", CONFIGS)
+def test_depth_config_bundle_builds(config, monkeypatch):
+    """The config's models at its own widths, as the Trainer builds them:
+    the backbone's encoder, the decoders, the pose net, the fusion module
+    and the frozen IFRNets of the config's scales."""
+    from mono_vifi_tpu_torch.training.factory import build_bundle
+
+    monkeypatch.chdir(ROOT)
+    cfg = parse_options(["-c", config, "--device", "cpu"])
+    bundle = build_bundle(cfg, 0, "cpu")
+    roles = bundle.trainable_roles()
+    assert {"encoder", "depth", "fusion_module", "pose_encoder", "pose"} <= roles.keys()
+    assert all(sum(p.numel() for p in m.parameters()) > 0 for m in roles.values())
+    assert not any(p.requires_grad for p in bundle.vfi_train.parameters())
+    assert bundle.cfg.backbone == cfg.backbone and bundle.cfg.height == cfg.height
+
+
+@pytest.mark.parametrize("config", VFI_CONFIGS)
+def test_vfi_config_model_builds_and_steps(config, monkeypatch):
+    """The config's IFRNet at its scale, as VFITrainer builds it, takes one
+    training step on a batch of two 32x64 triplets."""
+    from mono_vifi_tpu_torch.training import vfi as V
+
+    monkeypatch.chdir(ROOT)
+    cfg = parse_options(["-c", config, "--device", "cpu", "--compute_dtype", "float32"])
+    state = V.create_vfi_state(cfg, 0, 10, "cpu")
+    assert sum(p.numel() for p in state.params) > 0
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.random((2, 32, 64, 3), dtype=np.float32))
+             for k in ("img0", "img1", "img2")}
+    batch["embt"] = torch.full((2,), 0.5)
+    metrics, _ = V.make_vfi_train_step(cfg.clip_grad)(state, batch)
+    assert np.isfinite(float(metrics["loss"])) and state.step == 1
 
 
 def test_options_defaults_match_jax():
