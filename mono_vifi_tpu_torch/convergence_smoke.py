@@ -20,10 +20,9 @@ SADC term's). `run(trace_every=N)` also returns the run's trajectory, a row
 every N steps, and `run(init=fn)` starts from weights `fn` loads into the
 bundle (the JAX package's init, in tests/test_torch_convergence.py).
 
-The weights start from the port's own random init from the seed, not the
-JAX package's: the two differ, and the port's starts at a near-constant
-disparity whose median-scaled abs_rel on this plane is already low, so the
-depth error has less to improve than in the JAX run (PERF.md).
+The weights start from the port's random init from the seed, drawn by the
+JAX package's rule (models.init) from torch's RNG: the same distributions
+as the JAX tool's init, not the same values.
 """
 
 from __future__ import annotations

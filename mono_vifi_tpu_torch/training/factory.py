@@ -19,6 +19,7 @@ import torch.nn as nn
 from mono_vifi_tpu_torch import parallel
 from mono_vifi_tpu_torch.config import Options
 from mono_vifi_tpu_torch.models import dhrnet, fusion, ifrnet, litemono, monodepth2, posenet
+from mono_vifi_tpu_torch.models.init import init_like_jax_
 
 
 def resolve_device(device=None) -> torch.device:
@@ -105,10 +106,16 @@ class ModelBundle(nn.Module):
 
 def build_bundle(cfg: Options, seed: int = 0, device=None,
                  for_training: bool = True) -> ModelBundle:
-    """Random-init every module from `seed` (torch's default initializers),
-    without touching the global RNG, and move the bundle to `device`."""
+    """Random-init every module from `seed` by the JAX package's rule
+    (`models.init.init_like_jax_`), without touching the global RNG, and
+    move the bundle to `device`."""
     device = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        bundle = ModelBundle(cfg, for_training)
+        bundle = init_like_jax_(ModelBundle(cfg, for_training))
+        # the multi-frame copies start equal to their originals, as in the
+        # JAX package's init_variables
+        for copy_role, role in (("depth_mf", "depth"), ("encoder_mf", "encoder")):
+            if hasattr(bundle, copy_role):
+                getattr(bundle, copy_role).load_state_dict(getattr(bundle, role).state_dict())
     return bundle.to(device)

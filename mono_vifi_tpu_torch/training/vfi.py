@@ -25,6 +25,7 @@ import torch
 from mono_vifi_tpu_torch import parallel
 from mono_vifi_tpu_torch.config import Options
 from mono_vifi_tpu_torch.models.ifrnet import IFRNet
+from mono_vifi_tpu_torch.models.init import init_like_jax_
 from mono_vifi_tpu_torch.training.factory import compute_dtype, resolve_device
 from mono_vifi_tpu_torch.training.monovifi import apply_gradients, prepare_batch
 from mono_vifi_tpu_torch.training.optim import lr_schedule, make_optimizer
@@ -45,12 +46,13 @@ class VFITrainState:
 def create_vfi_state(cfg: Options, seed: int = 0, steps_per_epoch: int = 1000,
                      device=None) -> VFITrainState:
     """IFRNet at `cfg.vfi_scale` in the compute dtype, random-init from
-    `seed` (torch's default initializers, the global RNG untouched) on
-    `device` (CUDA unless given), and its optimizer and schedule."""
+    `seed` by the JAX package's rule (`models.init.init_like_jax_`; the
+    global RNG untouched) on `device` (CUDA unless given), and its optimizer
+    and schedule."""
     device = resolve_device(device)
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
-        module = IFRNet(cfg.vfi_scale, compute_dtype(cfg))
+        module = init_like_jax_(IFRNet(cfg.vfi_scale, compute_dtype(cfg)))
     module = module.to(device)
     params = list(module.parameters())
     return VFITrainState(step=0, module=module, optimizer=make_optimizer(cfg, params),

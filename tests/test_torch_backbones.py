@@ -53,6 +53,7 @@ from mono_vifi_tpu_torch.training import checkpoint as ckpt_lib
 from mono_vifi_tpu_torch.training import monovifi as TM
 from mono_vifi_tpu_torch.training.factory import build_bundle
 from mono_vifi_tpu_torch.training.pretrained import IMAGENET_FILES, apply_pretrained
+from tests.test_torch_parallel import torch_default_init
 
 B, H, W = 2, 64, 96
 BACKBONES = ("ResNet50", "LiteMono", "DHRNet")
@@ -139,9 +140,12 @@ def jax_trees(backbone, bundle):
 
 @pytest.fixture(scope="module", params=BACKBONES)
 def nets(request):
-    """The port's bundle (perturbed), the JAX bundle and the JAX trees."""
+    """The port's bundle (torch's default init, perturbed: see
+    tests/test_torch_parallel.py torch_default_init), the JAX bundle and
+    the JAX trees."""
     backbone = request.param
-    bundle = perturb(build_bundle(Options(**kw(backbone)), 3, "cpu"), 11)
+    with torch_default_init():
+        bundle = perturb(build_bundle(Options(**kw(backbone)), 3, "cpu"), 11)
     params, bstats = jax_trees(backbone, bundle)
     return backbone, bundle, JM.ModelBundle(JOptions(**kw(backbone))), params, bstats
 
@@ -232,7 +236,8 @@ def test_litemono_drop_path_masks_match_jax():
     """Train mode at the default rates (0 .. 0.2), the same per-sample keep
     masks injected into both packages (the JAX side through an interceptor
     in place of its own draws), about a fifth of them dropping."""
-    bundle = perturb(build_bundle(Options(**kw("LiteMono")), 5, "cpu"), 12)
+    with torch_default_init():
+        bundle = perturb(build_bundle(Options(**kw("LiteMono")), 5, "cpu"), 12)
     params, bstats = jax_trees("LiteMono", bundle)
     enc = bundle.encoder
     masks = np.random.default_rng(6).random((enc.num_drop_paths, B)) >= 0.2

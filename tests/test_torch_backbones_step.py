@@ -1,7 +1,8 @@
 """The port's whole training step with LiteMono and with D-HRNet against the
 JAX package's `MonoViFiStep.loss_fn` on the CPU, at the config of
 tests/test_torch_step.py (64x96, B=2, f32, tiny VFI, affine,
-shared_encoder) with the backbone swapped: the same weights, batch,
+shared_encoder) with the backbone swapped: the same weights (torch's
+default init: tests/test_torch_parallel.py torch_default_init), batch,
 automask noise and, for LiteMono, the same stochastic-depth keep masks
 (injected into the JAX encoder through an interceptor in place of its own
 draws).
@@ -34,6 +35,7 @@ from mono_vifi_tpu_torch.training import monovifi as TM
 from tests.test_torch_backbones import (
     STATS_ATOL, STATS_RTOL, drop_interceptor, jax_trees, np_sd,
 )
+from tests.test_torch_parallel import torch_default_init
 from tests.test_torch_step import CFG, B, H, W, make_batch
 
 GRAD_RTOL = {"depth": 1e-4, "depth_mf": 1e-4, "fusion_module": 1e-4, "pose": 1e-2,
@@ -64,7 +66,8 @@ def run(request):
     state_dicts, port state holding its gradients, port metrics)."""
     backbone = request.param
     cfg = CFG | {"backbone": backbone}
-    state = TM.create_train_state(Options(**cfg), 0, steps_per_epoch=10, device="cpu")
+    with torch_default_init():
+        state = TM.create_train_state(Options(**cfg), 0, steps_per_epoch=10, device="cpu")
     step = TM.MonoViFiStep(state.bundle, device="cpu")
     params, bstats = jax_trees(backbone, state.bundle)
     vfi = jconvert.convert_ifrnet(np_sd(state.bundle.vfi_train))["params"]
@@ -165,8 +168,9 @@ def test_dhrnet_encoder_gradients_are_rounding_sensitive():
              "n2": np.asarray(jax.random.normal(r_n2, (2, 3 * B, H, W)))}
     losses, grads = [], []
     for eps in (0.0, 1e-6):
-        state = TM.create_train_state(Options(**(CFG | {"backbone": "DHRNet"})), 0,
-                                      steps_per_epoch=10, device="cpu")
+        with torch_default_init():
+            state = TM.create_train_state(Options(**(CFG | {"backbone": "DHRNet"})), 0,
+                                          steps_per_epoch=10, device="cpu")
         gen = torch.Generator().manual_seed(0)
         with torch.no_grad():
             for p in state.bundle.encoder.parameters():

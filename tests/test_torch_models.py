@@ -108,12 +108,21 @@ def test_pose_net():
     np.testing.assert_allclose(tr.numpy(), np.asarray(tr_r), atol=1e-6)
 
 
-@pytest.mark.parametrize("scale", ["tiny", "small", "large"])
-def test_ifrnet(scale):
-    img0, img1 = rand(2, 64, 96, 3), rand(2, 64, 96, 3)
+@pytest.mark.parametrize("scale,size,batch", [
+    pytest.param(s, (64, 96), 2, id=s) for s in ("tiny", "small", "large")
+] + [pytest.param("tiny", (320, 1024), 1, id="tiny-320x1024")])
+def test_ifrnet(scale, size, batch):
+    """At 320x1024 (the HR configs' frozen VFI) the flow network runs at the
+    (0.6, 0.3125) downscale; that case draws its frames from a generator of
+    its own, so the module's draws for the other tests stay as they were."""
+    if size == (64, 96):
+        img0, img1 = rand(batch, *size, 3), rand(batch, *size, 3)
+    else:
+        g = np.random.default_rng(43)
+        img0, img1 = (g.random((batch, *size, 3)).astype(np.float32) for _ in range(2))
     net = seeded(TIF.IFRNet, scale)
     v = jconvert.convert_ifrnet(sd_np(net))
-    embt = np.full((2, 1, 1, 1), 0.5, np.float32)
+    embt = np.full((batch, 1, 1, 1), 0.5, np.float32)
     jnet = JIF.IFRNet(scale=scale)
     ref = jnet.apply(v, jnp.asarray(img0), jnp.asarray(img1), jnp.asarray(embt))
     ref_f = jnet.apply(v, jnp.asarray(img0), jnp.asarray(img1), jnp.asarray(embt),

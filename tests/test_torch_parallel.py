@@ -33,6 +33,7 @@ Tolerances (f32, CPU):
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pathlib
 import socket
@@ -57,6 +58,30 @@ from mono_vifi_tpu_torch.training import monovifi as TM  # noqa: E402
 RANK_TIMEOUT = 120  # seconds a rank may take
 TERMS = ("loss", "loss_base", "loss_dc", "loss_sadc")
 STEP_GRAD_RTOL = 1e-3
+
+
+@contextlib.contextmanager
+def torch_default_init():
+    """Build the port's bundles and VFI states with torch's default
+    initializers, the port's random init before it took the JAX package's
+    rule (mono_vifi_tpu_torch.models.init): the weights on which the
+    parity tests here and in tests/test_torch_{backbones,backbones_step,
+    step,remat}.py set their tolerances. From the JAX
+    rule's init a few of them miss by 1-2x, different ones for different
+    draws: there some leaves are ill-conditioned in f32, and the JAX
+    package's jitted step disagrees with its own op-by-op run, and with
+    another compilation of itself, as far as the port disagrees with it
+    (tests/test_torch_step_init.py, which holds the step from the port's
+    init); and D-HRNet's disparities saturate in both packages
+    (tests/test_torch_init_dhrnet.py). The init itself is held to the JAX
+    package's in tests/test_torch_init*.py. Defined here because this
+    file's ranks import no JAX."""
+    from mono_vifi_tpu_torch.training import factory, vfi
+
+    with pytest.MonkeyPatch.context() as mp:
+        for module in (factory, vfi):
+            mp.setattr(module, "init_like_jax_", lambda m: m)
+        yield
 
 
 # ------------------------------------------------------------------ the ranks
@@ -146,8 +171,9 @@ def step_record(state, metrics) -> dict:
 def depth_step(cfg: dict, batch: dict, noise: dict, b: int) -> dict:
     """One train step of a fresh state from seed 0 on this rank's rows of
     `batch` and of the global draws `noise` (all of them without a process
-    group)."""
-    state = TM.create_train_state(Options(**cfg), 0, steps_per_epoch=10, device="cpu")
+    group), with torch's default init (`torch_default_init`)."""
+    with torch_default_init():
+        state = TM.create_train_state(Options(**cfg), 0, steps_per_epoch=10, device="cpu")
     step = TM.MonoViFiStep(state.bundle, device="cpu")
     noise = step.local_noise({k: torch.as_tensor(v) for k, v in noise.items()}, b)
     metrics = step.make_train_step()(state, local_batch(batch, step.rank, b), noise=noise)
@@ -297,7 +323,8 @@ def resnet18(tmp_path_factory):
     job = {"cfg": cfg | {"batch_size": B // 2}, "batch": batch, "noise": noise, "b": B // 2}
     ranks = start_ranks("depth_step", job, tmp_path_factory.mktemp("resnet18"))
 
-    state = TM.create_train_state(Options(**cfg), 0, steps_per_epoch=10, device="cpu")
+    with torch_default_init():
+        state = TM.create_train_state(Options(**cfg), 0, steps_per_epoch=10, device="cpu")
     params, bstats = jax_trees("ResNet18", state.bundle)
     vfi = jconvert.convert_ifrnet(np_sd(state.bundle.vfi_train))["params"]
     jcfg = JOptions(**cfg, vfi_test_scale="tiny")

@@ -32,6 +32,7 @@ from mono_vifi_tpu_torch.config import Options
 from mono_vifi_tpu_torch.training import monovifi as TM
 
 from tests.test_torch_backbones import jax_trees, np_sd
+from tests.test_torch_parallel import torch_default_init
 from tests.test_torch_step import CFG, GRAD_RTOL, B, H, W, make_batch
 
 TERMS = ("loss", "loss_base", "loss_dc", "loss_sadc")
@@ -108,9 +109,11 @@ def test_remat_batchnorm_statistics_move_once(pair):
 def jax_run():
     """The JAX step with encoder_remat=True (jax.checkpoint around the
     fused encoder pass) and the port's remat step on the same weights,
-    batch and automask noise."""
+    batch and automask noise (torch's default init: see
+    tests/test_torch_parallel.py torch_default_init)."""
     cfg = CFG | {"encoder_remat": True}
-    state = TM.create_train_state(Options(**cfg), 0, steps_per_epoch=10, device="cpu")
+    with torch_default_init():
+        state = TM.create_train_state(Options(**cfg), 0, steps_per_epoch=10, device="cpu")
     params, bstats = jax_trees("ResNet18", state.bundle)
     vfi = jconvert.convert_ifrnet(np_sd(state.bundle.vfi_train))["params"]
     jcfg = JOptions(**cfg, vfi_test_scale="tiny")

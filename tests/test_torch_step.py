@@ -35,6 +35,7 @@ from mono_vifi_tpu.training.optim import make_optimizer as jmake_optimizer
 from mono_vifi_tpu_torch import convert
 from mono_vifi_tpu_torch.config import Options
 from mono_vifi_tpu_torch.training import monovifi as TM
+from tests.test_torch_parallel import torch_default_init
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 B, H, W = 2, 64, 96
@@ -85,7 +86,10 @@ def make_batch(seed=3):
 
 
 def _port_state():
-    state = TM.create_train_state(Options(**CFG), 0, steps_per_epoch=10, device="cpu")
+    """The port's state from seed 0 with torch's default init (see
+    tests/test_torch_parallel.py torch_default_init)."""
+    with torch_default_init():
+        state = TM.create_train_state(Options(**CFG), 0, steps_per_epoch=10, device="cpu")
     return state, TM.MonoViFiStep(state.bundle, device="cpu")
 
 

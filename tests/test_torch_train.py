@@ -263,9 +263,8 @@ def test_training_converges_on_synthetic_scene():
     thresholds of tests/test_convergence.py (f32, lr 4e-4, shared_all, tiny
     VFI), from that test's own initial weights: the JAX package's random
     init (jitted; the same values as its eager init) carried over by the
-    port's converter. The torch default init starts with a near-constant
-    disparity, already at the depth error the JAX run ends with (~0.07), so
-    it could not show the improvement the threshold asks for."""
+    port's converter, so both packages' runs start from the same values
+    (the port's own init draws the same distributions from another RNG)."""
     import jax
 
     kw = dict(height=H, width=W, batch_size=B, compute_dtype="float32",
