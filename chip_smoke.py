@@ -158,7 +158,19 @@ Phases, in order; any failure exits non-zero before the last line:
      (loader-fed training samples/s, its data wait), logged beside phase
      15's device-only rate; each must exit 0 with a JSON record last that
      has its keys and a finite, positive value;
- 21. the whole run's time, one JSON line describing every kernel (each
+ 21. the golden parity check (`python -m mono_vifi_tpu_torch.golden_parity`
+     through its `main`) on phase 7's tree (an `eigen_benchmark` split
+     beside its `eigen`: the same 8 lines and synthetic ground truths),
+     phase 7's models/model_0.pth and phase 10's IFRNet-L, at the entry
+     modules' defaults (640x192, batch 4, f32 with TF32 off): with no
+     golden source it must return 2; single-frame with --post_process and
+     --mf (--vfi_scale large), each against golden numbers computed by its
+     `run_ours` on the CPU (every kernel's plain version), must return 0
+     with all seven metrics of each split within 1e-4 of the CPU's, and
+     single-frame 1 with a golden a1 moved by 0.01; --mf must launch the
+     table sample at the multi-frame inference's shapes (`golden_launches`
+     in the kernels' line); the ms of each card and CPU run;
+ 22. the whole run's time, one JSON line describing every kernel (each
      variant's launches those of its own path), then the result line.
 
 Phase 3 also checks and times every kernel at the shapes phases 8-19 give
@@ -1845,6 +1857,88 @@ def loader_e2e_phase(card: str, bench_rate: float) -> None:
         f"bench's {bench_rate:.2f} (phase 15, inside this process), {card}")
 
 
+GOLDEN_TOL = 1e-4  # each of the seven metrics, the card against the CPU's plain versions
+GOLDEN_MOVE = 0.01  # the negative check's shift of a golden a1
+GOLDEN_MODES = (("single-frame", ["--post_process"]), ("multi-frame", ["--mf"]))
+
+
+def golden_phase(card: str, tmp: str, ckpt: str, weights_dir: str) -> tuple:
+    """Phase 21: `python -m mono_vifi_tpu_torch.golden_parity` (its `main`)
+    on the synthetic tree in `tmp` (an `eigen_benchmark` split beside its
+    `eigen`, the same lines and ground truths), `ckpt` and IFRNet-L from
+    `weights_dir`, at the entry modules' defaults (640x192, batch 4, f32).
+    No golden source must return 2. Each mode of GOLDEN_MODES: the golden
+    numbers from `run_ours` on the CPU (every kernel's plain version), then
+    `main --golden` on the card must return 0, all seven metrics of each
+    split within GOLDEN_TOL of the CPU's; the single-frame mode must return
+    1 with a golden a1 moved by GOLDEN_MOVE. -> (launches, by shape) of the
+    multi-frame card run."""
+    import shutil
+
+    import torch
+
+    from mono_vifi_tpu_torch import evaluate_depth as ED
+    from mono_vifi_tpu_torch import evaluate_depth_mf as EDM
+    from mono_vifi_tpu_torch import golden_parity as GP
+    from mono_vifi_tpu_torch.ops import cuda
+
+    splits = os.path.join(tmp, "splits")
+    shutil.copytree(os.path.join(splits, "kitti", "eigen"),
+                    os.path.join(splits, "kitti", "eigen_benchmark"))
+    ED.SPLITS_DIR = EDM.SPLITS_DIR = splits
+    common = ["--kitti_path", os.path.join(tmp, "kitti"), "--ckpt", ckpt,
+              "--weights_dir", weights_dir, "--vfi_scale", "large"]
+    rc = GP.main(common)
+    log(f"golden parity with no golden source: exit code {rc} (expected 2)")
+    if rc != 2:
+        raise AssertionError(f"golden_parity with no golden source returned {rc}")
+    counts = None
+    for label, flags in GOLDEN_MODES:
+        name = flags[0][2:]
+        t0 = time.perf_counter()
+        golden = GP.run_ours(GP.parse_args(common + flags + ["--device", "cpu"]))
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        path, save = (os.path.join(tmp, f"{kind}_{name}.json") for kind in ("golden", "ours"))
+        with open(path, "w") as f:
+            json.dump(golden, f)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = GP.main(common + flags + ["--golden", path, "--save", save])
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        launches, shapes = dict(cuda.LAUNCHES), dict(cuda.LAUNCH_SHAPES)
+        with open(save) as f:
+            ours = json.load(f)["ours"]
+        diffs = {(s, k): abs(ours[s][k] - golden[s][k]) for s in GP.SPLITS for k in GP.ALL_NAMES}
+        worst = max(diffs, key=diffs.get)
+        log(f"golden parity {label}: exit code {rc} (expected 0); card run {card_ms:.1f} ms "
+            f"({card}), CPU run {cpu_ms:.1f} ms (plain versions; each with the model build "
+            f"and 2 x {N_TEST} frames); largest |Δ| of the seven metrics card vs CPU "
+            f"{diffs[worst]:.3e} ({worst[0]} {worst[1]}; tol {GOLDEN_TOL:.0e}); launches "
+            f"{launches}")
+        if rc != 0:
+            raise AssertionError(f"golden_parity {label} against the CPU's numbers returned {rc}")
+        if not diffs[worst] <= GOLDEN_TOL:
+            raise AssertionError(f"golden parity {label}: {worst} differs by {diffs[worst]}")
+        if "--mf" in flags:
+            if launches["bilinear_sample_table"] <= 0:
+                raise AssertionError("bilinear_sample_table not launched by golden_parity --mf")
+            counts = (launches, shapes)
+            continue
+        # the negative check on the cheaper mode (the comparison is the same)
+        golden["eigen"]["a1"] += GOLDEN_MOVE
+        with open(path, "w") as f:
+            json.dump(golden, f)
+        rc = GP.main(common + flags + ["--golden", path])
+        log(f"golden parity {label}, eigen a1 moved by {GOLDEN_MOVE}: exit code {rc} "
+            "(expected 1)")
+        if rc != 1:
+            raise AssertionError(f"golden_parity {label} against a moved a1 returned {rc}")
+    return counts
+
+
 def config_driver_phase(card: str, tmp: str, label: str, eval_label: str, argv: list,
                         pretrained: str | None = None) -> dict:
     """Phases 17-18: the real `Trainer` of a KITTI-HR or Cityscapes config
@@ -1968,7 +2062,7 @@ def vfi_configs_phase(card: str, tmp: str) -> dict:
 
 
 def attach_launches(kernels: dict, step: tuple, inference: tuple, driver: dict, extra: dict,
-                    bench_counts: dict) -> None:
+                    bench_counts: dict, golden: tuple) -> None:
     """Give each variant of phase 3's kernels the counts of the path it
     belongs to, (counts, by shape) each: the training step's (phase 4, and
     the driver's 12 steps as driver_launches), the multi-frame inference's
@@ -1977,8 +2071,10 @@ def attach_launches(kernels: dict, step: tuple, inference: tuple, driver: dict, 
     training, test_video, the two-rank steps, the convergence smoke, the HR
     and Cityscapes paths: phases 8-19); a variant on no path carries its
     kernel's phase-4 count. The bench's runs (phase 15) go through phase 4's
-    shapes and the HR ResNet18 step's: their counts stand beside those.
-    Raises where a variant's path did not launch its kernel at its shape."""
+    shapes and the HR ResNet18 step's, the golden parity check's multi-frame
+    run (phase 21) through the multi-frame inference's: their counts stand
+    beside those. Raises where a variant's path did not launch its kernel at
+    its shape."""
     def from_bench(v, key, name, shape):
         counts, by_shape = bench_counts[key]
         key = key.replace(" --", "_")
@@ -2015,6 +2111,11 @@ def attach_launches(kernels: dict, step: tuple, inference: tuple, driver: dict, 
                 continue
             shape = v.pop("launch_shape")
             v["launches_at_shape"] = by_shape.get((name, shape), 0)
+            if path == "multi-frame inference":
+                v["golden_launches"] = golden[0][name]
+                v["golden_launches_at_shape"] = golden[1].get((name, shape), 0)
+                if v["golden_launches_at_shape"] <= 0:
+                    raise AssertionError(f"{name} not launched at {shape} by golden_parity --mf")
             if path in ("multi-frame inference", DRIVER_EVAL):
                 if v["launches_at_shape"] <= 0:
                     raise AssertionError(f"{name} not launched at {shape} on the {path}")
@@ -2123,13 +2224,21 @@ def main() -> int:
         t0 = time.perf_counter()
         extra.update(vfi_configs_phase(card, tmp))
         log(f"VFI configs: phase took {time.perf_counter() - t0:.1f} s")
-    # phase 20: the loader benchmarks, each its own process
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    loader_e2e_phase(card, bench_rate)
-    log(f"loader benchmarks: phase took {time.perf_counter() - t0:.1f} s")
+        # phase 20: the loader benchmarks, each its own process
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        loader_e2e_phase(card, bench_rate)
+        log(f"loader benchmarks: phase took {time.perf_counter() - t0:.1f} s")
+        # phase 21: the golden parity check on phase 7's weights and phase
+        # 10's IFRNet-L, against the CPU's numbers
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        golden = golden_phase(
+            card, tmp, os.path.join(tmp, "logs", "ResNet18_KITTI_MR", "models", "model_0.pth"),
+            os.path.join(tmp, "weights"))
+        log(f"golden parity: phase took {time.perf_counter() - t0:.1f} s")
     attach_launches(kernels, (launches, shapes), (inference, inference_shapes), driver, extra,
-                    bench_counts)
+                    bench_counts, golden)
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the build to the end")
     log(json.dumps({"kernels": list(kernels.values())}))
     log(card)

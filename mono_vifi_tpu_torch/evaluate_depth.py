@@ -108,11 +108,14 @@ def predict_disps(args, bundle, images_iter) -> np.ndarray:
     return np.concatenate(disps, 0)
 
 
-def main(args):
+def main(args) -> dict:
+    """Evaluate on every dataset whose --*_path is set; -> {split: metrics}
+    (`eigen`, `eigen_benchmark`, `make3d`, `nyuv2`, `cityscapes`)."""
     from mono_vifi_tpu_torch.data import (
         CityscapesDataset, DataLoader, KITTIRAWDataset, Make3DDataset, NYUDataset,
     )
 
+    results = {}
     resolve_device(args.device)
     set_f32_math()
     bundle = load_model(args)
@@ -133,7 +136,7 @@ def main(args):
             gt = np.load(os.path.join(SPLITS_DIR, "kitti", split, "gt_depths.npz"),
                          fix_imports=True, encoding="latin1", allow_pickle=True)["data"]
             pred = predict_disps(args, bundle, (b["color_0"] for b in loader))
-            evaluation.evaluate_kitti(pred, gt, split, args.use_stereo)
+            results[split] = evaluation.evaluate_kitti(pred, gt, split, args.use_stereo)
 
     if args.make3d_path:
         print(" Evaluate on Make3D:")
@@ -141,7 +144,8 @@ def main(args):
         ds = Make3DDataset(args.make3d_path, files, (args.height, args.width))
         items = [ds[i] for i in range(len(ds))]
         pred = predict_disps(args, bundle, (it["color"][None] for it in items))
-        evaluation.evaluate_make3d(pred, [it["depth"] for it in items], args.use_stereo)
+        results["make3d"] = evaluation.evaluate_make3d(
+            pred, [it["depth"] for it in items], args.use_stereo)
 
     if args.nyuv2_path:
         print(" Evaluate on NYU Depth v2:")
@@ -149,7 +153,7 @@ def main(args):
         ds = NYUDataset(args.nyuv2_path, files, args.height, args.width, [0], 1)
         items = [ds.load_test_item(i) for i in range(len(ds))]
         pred = predict_disps(args, bundle, (rgb[None] for rgb, _ in items))
-        evaluation.evaluate_nyuv2(pred, [depth for _, depth in items])
+        results["nyuv2"] = evaluation.evaluate_nyuv2(pred, [depth for _, depth in items])
 
     if args.cityscapes_path:
         print(" Evaluate on Cityscapes:")
@@ -161,7 +165,8 @@ def main(args):
         gts = [np.load(os.path.join(gt_path, str(i).zfill(3) + "_depth.npy"))
                for i in range(len(ds))]
         pred = predict_disps(args, bundle, (b["color_0"] for b in loader))
-        evaluation.evaluate_cityscapes(pred, gts, args.use_stereo)
+        results["cityscapes"] = evaluation.evaluate_cityscapes(pred, gts, args.use_stereo)
+    return results
 
 
 if __name__ == "__main__":

@@ -98,9 +98,12 @@ def predict_disps_mf(args, bundle, batches) -> np.ndarray:
     return np.concatenate(disps, 0)
 
 
-def main(args):
+def main(args) -> dict:
+    """Evaluate on KITTI and/or Cityscapes; -> {split: metrics} (`eigen`,
+    `eigen_benchmark`, `cityscapes`)."""
     from mono_vifi_tpu_torch.data import CityscapesDataset, DataLoader, KITTIRAWDataset
 
+    results = {}
     resolve_device(args.device)
     set_f32_math()
     if args.kitti_path:
@@ -114,7 +117,7 @@ def main(args):
             gt = np.load(os.path.join(SPLITS_DIR, "kitti", split, "gt_depths.npz"),
                          fix_imports=True, encoding="latin1", allow_pickle=True)["data"]
             pred = predict_disps_mf(args, bundle, loader)
-            evaluation.evaluate_kitti(pred, gt, split, use_stereo=False)
+            results[split] = evaluation.evaluate_kitti(pred, gt, split, use_stereo=False)
 
     if args.cityscapes_path:
         bundle = load_model(args, "CS")
@@ -128,7 +131,8 @@ def main(args):
         gts = [np.load(os.path.join(gt_path, str(i).zfill(3) + "_depth.npy"))
                for i in range(len(ds))]
         pred = predict_disps_mf(args, bundle, loader)
-        evaluation.evaluate_cityscapes(pred, gts, use_stereo=False)
+        results["cityscapes"] = evaluation.evaluate_cityscapes(pred, gts, use_stereo=False)
+    return results
 
 
 if __name__ == "__main__":

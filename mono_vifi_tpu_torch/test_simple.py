@@ -40,6 +40,8 @@ def parse_args(argv=None):
     p.add_argument("--max_depth", type=float, default=100.0)
     p.add_argument("--ext", type=str, default="png")
     p.add_argument("--save_npy", action="store_true")
+    p.add_argument("--post_process", action="store_true",
+                   help="accepted for the root test_simple.py's command line; changes nothing")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 

@@ -131,6 +131,28 @@ def test_test_simple_matches_the_jax_script(weights, jax_model, frame_dirs, monk
             assert im.size == (200, 90)  # the frame's own size
 
 
+def test_test_simple_takes_the_root_scripts_command_line():
+    """Every flag of the root test_simple.py parses in the port to the same
+    value; `--post_process`, which neither script acts on, included."""
+    argv = ["--image_path", "img.png", "--pretrained_path", "ckpt.pth", "--backbone",
+            "LiteMono", "--height", "96", "--width", "320", "--ext", "jpg", "--save_npy",
+            "--post_process"]
+    ref = vars(JTS.parse_args(argv))
+    assert ref["post_process"] is True
+    assert vars(TS.parse_args(argv)) == ref | {"device": "cuda"}
+
+
+def test_the_root_mf_load_model_raises_before_it_builds():
+    """Why the root scripts' multi-frame `load_model` is replaced here and in
+    tests/test_torch_golden_parity.py (module docstring): it reads `jax`
+    before its function-local `import jax` binds it."""
+    import evaluate_depth_mf as JEDM
+
+    args = JEDM.eval_args(["--height", str(H), "--width", str(W)])
+    with pytest.raises(UnboundLocalError):
+        JEDM.load_model(args, "KITTI")
+
+
 def test_test_simple_single_file(weights, tmp_path):
     """`--image_path` naming one image writes beside it."""
     ckpt = weights[0]
