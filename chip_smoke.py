@@ -2145,7 +2145,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build.load()
-    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc {build.last_build_seconds:.1f} s)")
+    log(f"build: {time.perf_counter() - t0:.1f} s")
     t_start = t0
 
     kernels = kernel_phase(device)

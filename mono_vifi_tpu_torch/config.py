@@ -15,7 +15,9 @@ port does with each (mono_vifi_tpu_torch.parallel for the first two;
   encoder_remat  the encoder's activations recomputed in the backward pass
   fast_warp      no effect: the port always runs its kernels on the card
   debug_nans     torch.autograd.set_detect_anomaly
-  profile_steps  a torch.profiler trace of that many steps
+  profile_steps  a torch.profiler trace of that many steps of the first
+                 epoch, from its second step on (the first, with cuDNN's
+                 autotuning, would swamp it)
 """
 
 from __future__ import annotations
@@ -97,7 +99,7 @@ class Options:
     num_devices: int = 0
     compute_dtype: str = "bfloat16"  # conv compute dtype; params stay f32
     weights_dir: str = "./weights"  # frozen VFI / ImageNet encoder weights
-    profile_steps: int = 0  # >0: a torch.profiler trace of N steps
+    profile_steps: int = 0  # >0: a torch.profiler trace of steps 2 to N + 1
     debug_nans: bool = False  # torch.autograd.set_detect_anomaly
     encoder_remat: bool = False
     fast_warp: bool = True  # no effect in the port

@@ -25,6 +25,7 @@ import torch
 from mono_vifi_tpu_torch import evaluation
 from mono_vifi_tpu_torch.config import Options
 from mono_vifi_tpu_torch.ops.geometry import disp_to_depth
+from mono_vifi_tpu_torch.tracing import span
 from mono_vifi_tpu_torch.training import checkpoint as ckpt_lib
 from mono_vifi_tpu_torch.training.factory import build_bundle, resolve_device
 from mono_vifi_tpu_torch.training.monovifi import prepare_batch, single_frame_disp
@@ -87,7 +88,8 @@ def load_model(args):
 
 def to_device_images(img, device) -> torch.Tensor:
     """An NHWC uint8 or float batch -> NCHW f32 on `device`, in [0, 1]."""
-    return prepare_batch({"img": img}, device)["img"]
+    with span("to_device_images"):
+        return prepare_batch({"img": img}, device)["img"]
 
 
 def predict_disps(args, bundle, images_iter) -> np.ndarray:

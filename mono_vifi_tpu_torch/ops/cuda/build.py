@@ -37,9 +37,6 @@ SIGNATURES = {
     "mv_bilinear_sample_table": [_P, _I] + [_P] * 4 + [_I] * 8 + [_P],
 }
 
-# seconds the last build in this process took (0.0 when the cache held it)
-last_build_seconds = 0.0
-
 
 def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME")
@@ -65,14 +62,11 @@ def _digest(sources) -> str:
 def build() -> Path:
     """Compile the sources (in parallel) and link the library; return its
     path. Raises RuntimeError with the compiler's output on failure."""
-    global last_build_seconds
     sources = sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
     out_dir = BUILD_ROOT / _digest(sources)
     lib = out_dir / LIB_NAME
     if lib.exists():
-        last_build_seconds = 0.0
         return lib
-    t0 = time.perf_counter()
     nvcc = _nvcc()
     work = BUILD_ROOT / f"tmp-{os.getpid()}-{time.monotonic_ns()}"
     work.mkdir(parents=True)
@@ -105,7 +99,6 @@ def build() -> Path:
     os.replace(work / "build.log", out_dir / "build.log")
     os.replace(work / LIB_NAME, lib)
     shutil.rmtree(work, ignore_errors=True)
-    last_build_seconds = time.perf_counter() - t0
     return lib
 
 

@@ -52,6 +52,7 @@ from mono_vifi_tpu_torch.data import (
 )
 from mono_vifi_tpu_torch.evaluate_depth import SPLITS_DIR
 from mono_vifi_tpu_torch.ops.geometry import disp_to_depth
+from mono_vifi_tpu_torch.tracing import span
 from mono_vifi_tpu_torch.training import checkpoint as ckpt_lib
 from mono_vifi_tpu_torch.training.factory import resolve_device
 from mono_vifi_tpu_torch.training.monovifi import (
@@ -286,56 +287,72 @@ class Trainer:
         self.sampler.set_start_iter(self.batch_start * cfg.batch_size)
         self.train_dataset.set_epoch(epoch)
 
+        # the trace covers steps 2 to profile_steps + 1: the first step's
+        # cuDNN autotuning would swamp it
+        profiling = cfg.profile_steps > 0 and epoch == self.ep_start and self.is_chief
         prof = None
-        if cfg.profile_steps > 0 and epoch == self.ep_start and self.is_chief:
-            acts = [torch.profiler.ProfilerActivity.CPU]
-            if self.device.type == "cuda":
-                acts.append(torch.profiler.ProfilerActivity.CUDA)
-            prof = torch.profiler.profile(activities=acts)
-            prof.start()
-
+        batches = enumerate(device_prefetch(self.train_loader, self.device))
         t_data = time.perf_counter()
-        for batch_idx, batch in enumerate(device_prefetch(self.train_loader, self.device)):
-            self.noise.manual_seed(self.noise_seed(self.state.step))
-            t_fp = time.perf_counter()
-            metrics = self.train_step(self.state, batch, self.noise)
-            if prof is not None and batch_idx + 1 >= cfg.profile_steps:
-                prof = self._stop_profile(prof, metrics)
+        while True:
+            with span("run_epoch.data_wait"):
+                item = next(batches, None)
+            if item is None:
+                break
+            batch_idx, batch = item
+            with span("run_epoch.step"):
+                self.noise.manual_seed(self.noise_seed(self.state.step))
+                t_fp = time.perf_counter()
+                metrics = self.train_step(self.state, batch, self.noise)
+            if prof is not None and batch_idx >= cfg.profile_steps:
+                prof = self._stop_profile(prof, metrics, batch_idx)
 
             global_idx = batch_idx + self.batch_start
             if global_idx % cfg.log_frequency == 0:
-                loss = float(metrics["loss"])  # waits for the step
-                t_now = time.perf_counter()
-                step_no = self.state.step
-                eta = (self.num_total_steps - step_no) * (t_now - t_data)
-                lr = self.state.schedule(step_no)
-                logging.info(
-                    "epoch %2d/%d | batch %4d/%d | data %.3fs | step %.3fs | "
-                    "loss %.4f | lr %.2e | eta %s",
-                    epoch, cfg.num_epochs - 1, global_idx, self.steps_per_epoch,
-                    t_fp - t_data, t_now - t_fp, loss, lr, sec_to_hm_str(eta),
-                )
-                self.history.append({"epoch": epoch, "batch": global_idx, "step": step_no,
-                                     "data_s": t_fp - t_data, "step_s": t_now - t_fp,
-                                     "t": t_now, "loss": loss, "lr": lr})
-                if self.writer is not None:
-                    for k, v in metrics.items():
-                        self.writer.add_scalar(k, float(v), step_no)
-                    self.writer.add_scalar("learning_rate", lr, step_no)
+                with span("run_epoch.log"):
+                    loss = float(metrics["loss"])  # waits for the step
+                    t_now = time.perf_counter()
+                    step_no = self.state.step
+                    eta = (self.num_total_steps - step_no) * (t_now - t_data)
+                    lr = self.state.schedule(step_no)
+                    logging.info(
+                        "epoch %2d/%d | batch %4d/%d | data %.3fs | step %.3fs | "
+                        "loss %.4f | lr %.2e | eta %s",
+                        epoch, cfg.num_epochs - 1, global_idx, self.steps_per_epoch,
+                        t_fp - t_data, t_now - t_fp, loss, lr, sec_to_hm_str(eta),
+                    )
+                    self.history.append({"epoch": epoch, "batch": global_idx, "step": step_no,
+                                         "data_s": t_fp - t_data, "step_s": t_now - t_fp,
+                                         "t": t_now, "loss": loss, "lr": lr})
+                    if self.writer is not None:
+                        for k, v in metrics.items():
+                            self.writer.add_scalar(k, float(v), step_no)
+                        self.writer.add_scalar("learning_rate", lr, step_no)
             if global_idx > 0 and global_idx % cfg.save_frequency == 0:
-                self.save_model(epoch, batch_idx=global_idx + 1)
+                with span("run_epoch.checkpoint"):
+                    self.save_model(epoch, batch_idx=global_idx + 1)
+            if profiling and batch_idx == 0:
+                prof = self._start_profile()
             t_data = time.perf_counter()
         if prof is not None:
-            self._stop_profile(prof, metrics)
+            self._stop_profile(prof, metrics, batch_idx)
         self.batch_start = 0
 
-    def _stop_profile(self, prof, metrics):
+    def _start_profile(self):
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        prof = torch.profiler.profile(activities=acts)
+        prof.start()
+        return prof
+
+    def _stop_profile(self, prof, metrics, batch_idx: int):
         float(metrics["loss"])
         prof.stop()
         trace_dir = os.path.join(self.log_path, "profile")
         os.makedirs(trace_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
-        logging.info("Profiler trace of %d steps in %s", self.cfg.profile_steps, trace_dir)
+        logging.info("Profiler trace of steps 2 to %d of the epoch in %s", batch_idx + 1,
+                     trace_dir)
         return None
 
     # ------------------------------------------------------------------ eval

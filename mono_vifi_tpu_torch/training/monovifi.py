@@ -43,6 +43,7 @@ from mono_vifi_tpu_torch.ops import image as image_ops
 from mono_vifi_tpu_torch.ops import losses as L
 from mono_vifi_tpu_torch.ops.cuda.photometric import ssim_l1_map, ssim_l1_map_nograd
 from mono_vifi_tpu_torch.ops.sampling import sample_planar
+from mono_vifi_tpu_torch.tracing import span
 from mono_vifi_tpu_torch.training.factory import ModelBundle, build_bundle, resolve_device
 from mono_vifi_tpu_torch.training.optim import (
     clip_by_global_norm_, global_norm, lr_schedule, make_optimizer,
@@ -248,158 +249,168 @@ class MonoViFiStep:
         K, invK = batch["K"], batch["inv_K"]
 
         # ---- frozen VFI-L: two synthesis pairs, plus the (n1, p1) pair's flows
-        with torch.no_grad():
-            embt2 = torch.full((2 * B, 1, 1, 1), 0.5, device=self.device)
-            vfi_out = b.vfi_train(
-                torch.cat([img_n1, img_0], 0), torch.cat([img_0, img_p1], 0), embt2
-            )
-            flows_01 = b.vfi_train(img_n1, img_p1, embt2[:B], only_flow=True)
-        pred = vfi_out["imgt_pred"].float()
-        fl0, fl1 = vfi_out["flow0"].float(), vfi_out["flow1"].float()
-        msk = vfi_out["mask"].float()
-        img_nt, img_pt = pred[:B], pred[B:]
-        flow_nt_n1, flow_nt_0 = fl0[:B], fl1[:B]
-        flow_pt_0, flow_pt_p1 = fl0[B:], fl1[B:]
-        flow_0_n1, flow_0_p1 = flows_01["flow0"].float(), flows_01["flow1"].float()
-        mask_nt, mask_pt, mask_01 = msk[:B], msk[B:], flows_01["mask"].float()
+        with span("forward.vfi"):
+            with torch.no_grad():
+                embt2 = torch.full((2 * B, 1, 1, 1), 0.5, device=self.device)
+                vfi_out = b.vfi_train(
+                    torch.cat([img_n1, img_0], 0), torch.cat([img_0, img_p1], 0), embt2
+                )
+                flows_01 = b.vfi_train(img_n1, img_p1, embt2[:B], only_flow=True)
+            pred = vfi_out["imgt_pred"].float()
+            fl0, fl1 = vfi_out["flow0"].float(), vfi_out["flow1"].float()
+            msk = vfi_out["mask"].float()
+            img_nt, img_pt = pred[:B], pred[B:]
+            flow_nt_n1, flow_nt_0 = fl0[:B], fl1[:B]
+            flow_pt_0, flow_pt_p1 = fl0[B:], fl1[B:]
+            flow_0_n1, flow_0_p1 = flows_01["flow0"].float(), flows_01["flow1"].float()
+            mask_nt, mask_pt, mask_01 = msk[:B], msk[B:], flows_01["mask"].float()
 
         # ---- 6 pose pairs in one pass (reference train.py:728-733, :943-954)
-        pose_pairs = [
-            (aug_n1, aug_0), (aug_0, aug_p1),
-            (img_n1, img_nt), (img_nt, img_p1),
-            (img_n1, img_pt), (img_pt, img_p1),
-        ]
-        pose_in = torch.cat([torch.cat([a, c], 1) for a, c in pose_pairs], 0)
-        pfeats = b.pose_encoder(pose_in)
-        aa, tr = b.pose(pfeats[-1].float())
-        aa0, tr0 = aa[:, 0, 0], tr[:, 0, 0]
-        fwd = geometry.transformation_from_parameters(aa0, tr0, False)
-        inv = geometry.transformation_from_parameters(aa0, tr0, True)
-        T_0_n1, T_0_p1 = inv[:B], fwd[B:2 * B]
-        T_nt_n1, T_nt_p1 = inv[2 * B:3 * B], fwd[3 * B:4 * B]
-        T_pt_n1, T_pt_p1 = inv[4 * B:5 * B], fwd[5 * B:6 * B]
+        with span("forward.pose"):
+            pose_pairs = [
+                (aug_n1, aug_0), (aug_0, aug_p1),
+                (img_n1, img_nt), (img_nt, img_p1),
+                (img_n1, img_pt), (img_pt, img_p1),
+            ]
+            pose_in = torch.cat([torch.cat([a, c], 1) for a, c in pose_pairs], 0)
+            pfeats = b.pose_encoder(pose_in)
+            aa, tr = b.pose(pfeats[-1].float())
+            aa0, tr0 = aa[:, 0, 0], tr[:, 0, 0]
+            fwd = geometry.transformation_from_parameters(aa0, tr0, False)
+            inv = geometry.transformation_from_parameters(aa0, tr0, True)
+            T_0_n1, T_0_p1 = inv[:B], fwd[B:2 * B]
+            T_nt_n1, T_nt_p1 = inv[2 * B:3 * B], fwd[3 * B:4 * B]
+            T_pt_n1, T_pt_p1 = inv[4 * B:5 * B], fwd[5 * B:6 * B]
 
         # ---- both synthesized frames rotate + crop in one batched call
         if cfg.use_affine:
-            angle, box = batch["angle"], batch["box"]
-            rot2 = image_ops.rotate_bilinear(
-                torch.cat([img_nt, img_pt], 0), _tile(angle, 2)
-            )
-            aff2 = image_ops.batched_crop_resize(rot2, _tile(box, 2))
-            img_nt_aff, img_pt_aff = aff2[:B], aff2[B:]
+            with span("forward.rotate_crop"):
+                angle, box = batch["angle"], batch["box"]
+                rot2 = image_ops.rotate_bilinear(
+                    torch.cat([img_nt, img_pt], 0), _tile(angle, 2)
+                )
+                aff2 = image_ops.batched_crop_resize(rot2, _tile(box, 2))
+                img_nt_aff, img_pt_aff = aff2[:B], aff2[B:]
 
         # ---- depth encoder: one fused pass
-        sf_inputs = [aug_0, img_nt, img_pt]
-        if cfg.use_affine:
-            sf_inputs += [batch["color_affine_aug_0"], img_nt_aff, img_pt_aff]
-        n_sf = len(sf_inputs)
-        if cfg.fuse_model_type == "separate_all":
-            feats_sf = self._encode("encoder", torch.cat(sf_inputs, 0), noise)
-            mf_stack = self._encode(
-                "encoder_mf", torch.cat([aug_0, img_nt, img_pt, aug_n1, aug_p1], 0), noise)
-            fn1_mf = [f[3 * B:4 * B] for f in mf_stack]
-            fp1_mf = [f[4 * B:] for f in mf_stack]
-        else:
-            mf_stack = self._encode("encoder", torch.cat(sf_inputs + [aug_n1, aug_p1], 0), noise)
-            feats_sf = [f[:n_sf * B] for f in mf_stack]
-            fn1_mf = [f[n_sf * B:(n_sf + 1) * B] for f in mf_stack]
-            fp1_mf = [f[(n_sf + 1) * B:] for f in mf_stack]
-        f0_mf = [f[:B] for f in mf_stack]
+        with span("forward.encoder"):
+            sf_inputs = [aug_0, img_nt, img_pt]
+            if cfg.use_affine:
+                sf_inputs += [batch["color_affine_aug_0"], img_nt_aff, img_pt_aff]
+            n_sf = len(sf_inputs)
+            if cfg.fuse_model_type == "separate_all":
+                feats_sf = self._encode("encoder", torch.cat(sf_inputs, 0), noise)
+                mf_stack = self._encode(
+                    "encoder_mf", torch.cat([aug_0, img_nt, img_pt, aug_n1, aug_p1], 0), noise)
+                fn1_mf = [f[3 * B:4 * B] for f in mf_stack]
+                fp1_mf = [f[4 * B:] for f in mf_stack]
+            else:
+                mf_stack = self._encode(
+                    "encoder", torch.cat(sf_inputs + [aug_n1, aug_p1], 0), noise)
+                feats_sf = [f[:n_sf * B] for f in mf_stack]
+                fn1_mf = [f[n_sf * B:(n_sf + 1) * B] for f in mf_stack]
+                fp1_mf = [f[(n_sf + 1) * B:] for f in mf_stack]
+            f0_mf = [f[:B] for f in mf_stack]
 
         # ---- single-frame disparities (one decoder pass)
-        disp_sf = b.depth(feats_sf)[0].float()
-        disp_0, disp_nt, disp_pt = disp_sf[:B], disp_sf[B:2 * B], disp_sf[2 * B:3 * B]
-        if cfg.use_affine:
-            disp_0_aff = disp_sf[3 * B:4 * B]
-            disp_nt_aff = disp_sf[4 * B:5 * B]
-            disp_pt_aff = disp_sf[5 * B:6 * B]
+        with span("forward.depth"):
+            disp_sf = b.depth(feats_sf)[0].float()
+            disp_0, disp_nt, disp_pt = disp_sf[:B], disp_sf[B:2 * B], disp_sf[2 * B:3 * B]
+            if cfg.use_affine:
+                disp_0_aff = disp_sf[3 * B:4 * B]
+                disp_nt_aff = disp_sf[4 * B:5 * B]
+                disp_pt_aff = disp_sf[5 * B:6 * B]
 
         def to_depth(d):
             return geometry.disp_to_depth(d, cfg.min_depth, cfg.max_depth)[1]
 
         # ---- multi-frame: 3 fusion triplets in one pass; their prev/next
         # pyramids are 3 unique pyramids (f0, fn1, fp1) read through a table
-        center = [f[:3 * B] for f in mf_stack]
-        flow_prev = torch.cat([flow_0_n1, flow_nt_n1, flow_pt_0], 0)
-        flow_next = torch.cat([flow_0_p1, flow_nt_0, flow_pt_p1], 0)
-        mask3 = torch.cat([mask_01, mask_nt, mask_pt], 0)
-        unique = [torch.cat([a, a2, a3], 0) for a, a2, a3 in zip(f0_mf, fn1_mf, fp1_mf)]
-        ids = torch.tensor(
-            [p * B + j for p in TABLE_USES for j in range(B)],
-            dtype=torch.int32, device=self.device,
-        )
-        fused = b.fusion_module(
-            [None, center, None], (flow_prev, flow_next), mask3,
-            warp_table=(unique, ids),
-        )
-        disp_fuse = b.role("depth_mf")(fused)[0].float()
-        disp_0_fuse = disp_fuse[:B]
-        disp_nt_fuse = disp_fuse[B:2 * B]
-        disp_pt_fuse = disp_fuse[2 * B:]
+        with span("forward.fusion"):
+            center = [f[:3 * B] for f in mf_stack]
+            flow_prev = torch.cat([flow_0_n1, flow_nt_n1, flow_pt_0], 0)
+            flow_next = torch.cat([flow_0_p1, flow_nt_0, flow_pt_p1], 0)
+            mask3 = torch.cat([mask_01, mask_nt, mask_pt], 0)
+            unique = [torch.cat([a, a2, a3], 0) for a, a2, a3 in zip(f0_mf, fn1_mf, fp1_mf)]
+            ids = torch.tensor(
+                [p * B + j for p in TABLE_USES for j in range(B)],
+                dtype=torch.int32, device=self.device,
+            )
+            fused = b.fusion_module(
+                [None, center, None], (flow_prev, flow_next), mask3,
+                warp_table=(unique, ids),
+            )
+            disp_fuse = b.role("depth_mf")(fused)[0].float()
+            disp_0_fuse = disp_fuse[:B]
+            disp_nt_fuse = disp_fuse[B:2 * B]
+            disp_pt_fuse = disp_fuse[2 * B:]
 
         # ---- photometric losses over 6 stacked targets (train.py:746-812)
-        disp_stack = torch.cat(
-            [disp_0, disp_pt, disp_nt, disp_0_fuse, disp_nt_fuse, disp_pt_fuse], 0
-        )
-        tgt_stack = torch.cat([img_0, img_pt, img_nt, img_0, img_nt, img_pt], 0)
-        Tn1_stack = torch.cat([T_0_n1, T_pt_n1, T_nt_n1, T_0_n1, T_nt_n1, T_pt_n1], 0)
-        Tp1_stack = torch.cat([T_0_p1, T_pt_p1, T_nt_p1, T_0_p1, T_nt_p1, T_pt_p1], 0)
-        sdm6 = None
-        use_dyn = cfg.use_smooth_dyn and "doj_mask_0" in batch
-        if use_dyn:
-            d0 = batch["doj_mask_0"][:, 0]
-            z = torch.zeros_like(d0)
-            sdm6 = torch.cat([d0, z, z, d0, z, z], 0)
-        loss_base = 6.0 * self._photometric(
-            disp_stack, tgt_stack, _tile(img_n1, 6), _tile(img_p1, 6),
-            Tn1_stack, Tp1_stack, _tile(K, 6), _tile(invK, 6), noise.get("n1"),
-            smooth_dyn_mask=sdm6, ident_reuse=IDENT_REUSE,
-        )
+        with span("forward.photometric"):
+            disp_stack = torch.cat(
+                [disp_0, disp_pt, disp_nt, disp_0_fuse, disp_nt_fuse, disp_pt_fuse], 0
+            )
+            tgt_stack = torch.cat([img_0, img_pt, img_nt, img_0, img_nt, img_pt], 0)
+            Tn1_stack = torch.cat([T_0_n1, T_pt_n1, T_nt_n1, T_0_n1, T_nt_n1, T_pt_n1], 0)
+            Tp1_stack = torch.cat([T_0_p1, T_pt_p1, T_nt_p1, T_0_p1, T_nt_p1, T_pt_p1], 0)
+            sdm6 = None
+            use_dyn = cfg.use_smooth_dyn and "doj_mask_0" in batch
+            if use_dyn:
+                d0 = batch["doj_mask_0"][:, 0]
+                z = torch.zeros_like(d0)
+                sdm6 = torch.cat([d0, z, z, d0, z, z], 0)
+            loss_base = 6.0 * self._photometric(
+                disp_stack, tgt_stack, _tile(img_n1, 6), _tile(img_p1, 6),
+                Tn1_stack, Tp1_stack, _tile(K, 6), _tile(invK, 6), noise.get("n1"),
+                smooth_dyn_mask=sdm6, ident_reuse=IDENT_REUSE,
+            )
 
         # ---- SVDC: single <-> fused SI-log consistency (train.py:797-812)
-        depth_single3 = to_depth(torch.cat([disp_0, disp_nt, disp_pt], 0))
-        depth_fuse3 = to_depth(torch.cat([disp_0_fuse, disp_nt_fuse, disp_pt_fuse], 0))
-        loss_dc = 3.0 * L.si_log_depth_loss(depth_single3, depth_fuse3)
+        with span("forward.svdc"):
+            depth_single3 = to_depth(torch.cat([disp_0, disp_nt, disp_pt], 0))
+            depth_fuse3 = to_depth(torch.cat([disp_0_fuse, disp_nt_fuse, disp_pt_fuse], 0))
+            loss_dc = 3.0 * L.si_log_depth_loss(depth_single3, depth_fuse3)
 
         # ---- affine branch (train.py:814-922)
         if cfg.use_affine:
-            T6 = torch.cat([T_0_n1, T_pt_n1, T_nt_n1, T_0_p1, T_pt_p1, T_nt_p1], 0)
-            T6_aff = geometry.conjugate_pose(T6, _tile(batch["Rc"], 6))
-            disp_aff_stack = torch.cat([disp_0_aff, disp_pt_aff, disp_nt_aff], 0)
-            tgt_aff_stack = torch.cat(
-                [batch["color_affine_0"], img_pt_aff, img_nt_aff], 0
-            )
-            sdm3 = None
-            if use_dyn and "doj_mask_0_affine" in batch:
-                da = batch["doj_mask_0_affine"][:, 0]
-                za = torch.zeros_like(da)
-                sdm3 = torch.cat([da, za, za], 0)
-            loss_base = loss_base + 3.0 * self._photometric(
-                disp_aff_stack, tgt_aff_stack,
-                _tile(batch["color_affine_n1"], 3), _tile(batch["color_affine_p1"], 3),
-                T6_aff[:3 * B], T6_aff[3 * B:], _tile(K, 3), _tile(invK, 3),
-                noise.get("n2"), mask_rec=_tile(batch["valid_mask_rec"], 3),
-                smooth_dyn_mask=sdm3,
-            )
+            with span("forward.affine_losses"):
+                T6 = torch.cat([T_0_n1, T_pt_n1, T_nt_n1, T_0_p1, T_pt_p1, T_nt_p1], 0)
+                T6_aff = geometry.conjugate_pose(T6, _tile(batch["Rc"], 6))
+                disp_aff_stack = torch.cat([disp_0_aff, disp_pt_aff, disp_nt_aff], 0)
+                tgt_aff_stack = torch.cat(
+                    [batch["color_affine_0"], img_pt_aff, img_nt_aff], 0
+                )
+                sdm3 = None
+                if use_dyn and "doj_mask_0_affine" in batch:
+                    da = batch["doj_mask_0_affine"][:, 0]
+                    za = torch.zeros_like(da)
+                    sdm3 = torch.cat([da, za, za], 0)
+                loss_base = loss_base + 3.0 * self._photometric(
+                    disp_aff_stack, tgt_aff_stack,
+                    _tile(batch["color_affine_n1"], 3), _tile(batch["color_affine_p1"], 3),
+                    T6_aff[:3 * B], T6_aff[3 * B:], _tile(K, 3), _tile(invK, 3),
+                    noise.get("n2"), mask_rec=_tile(batch["valid_mask_rec"], 3),
+                    smooth_dyn_mask=sdm3,
+                )
 
-            # SADC: restore the affine depths and compare (train.py:904-922);
-            # the rotate's image gradient comes from the splat kernel
-            placed = image_ops.batched_place_resize(
-                to_depth(disp_aff_stack), _tile(box, 3)
-            )
-            restored = image_ops.rotate_bilinear(
-                placed, -_tile(angle, 3), grad_via_splat=True
-            )
-            ratio = batch["ratio_local"].reshape(B, 1, 1, 1)
-            restored = restored * _tile(ratio, 3)
-            depth_single3o = to_depth(torch.cat([disp_0, disp_pt, disp_nt], 0))
-            depth_fuse3o = to_depth(torch.cat([disp_0_fuse, disp_pt_fuse, disp_nt_fuse], 0))
-            mc3 = _tile(batch["valid_mask_cons"], 3)
-            loss_sadc = 3.0 * (
-                L.si_log_depth_loss(restored, depth_fuse3o, mc3)
-                + L.si_log_depth_loss(restored, depth_single3o, mc3)
-            )
-            loss_dc = loss_dc + loss_sadc
+                # SADC: restore the affine depths and compare (train.py:904-922);
+                # the rotate's image gradient comes from the splat kernel
+                placed = image_ops.batched_place_resize(
+                    to_depth(disp_aff_stack), _tile(box, 3)
+                )
+                restored = image_ops.rotate_bilinear(
+                    placed, -_tile(angle, 3), grad_via_splat=True
+                )
+                ratio = batch["ratio_local"].reshape(B, 1, 1, 1)
+                restored = restored * _tile(ratio, 3)
+                depth_single3o = to_depth(torch.cat([disp_0, disp_pt, disp_nt], 0))
+                depth_fuse3o = to_depth(torch.cat([disp_0_fuse, disp_pt_fuse, disp_nt_fuse], 0))
+                mc3 = _tile(batch["valid_mask_cons"], 3)
+                loss_sadc = 3.0 * (
+                    L.si_log_depth_loss(restored, depth_fuse3o, mc3)
+                    + L.si_log_depth_loss(restored, depth_single3o, mc3)
+                )
+                loss_dc = loss_dc + loss_sadc
         else:
             loss_sadc = torch.zeros((), device=self.device)
 
@@ -418,13 +429,13 @@ class MonoViFiStep:
         the schedule's rate for `state.step`. In a process group the
         metrics are the global batch's (averaged over the ranks)."""
         def train_step(state, batch, generator=None, noise=None):
-            state.optimizer.zero_grad(set_to_none=True)
-            loss, metrics = self.loss_fn(batch, generator, noise, train=True)
-            loss.backward()
+            with span("train_step.forward"):
+                state.optimizer.zero_grad(set_to_none=True)
+                loss, metrics = self.loss_fn(batch, generator, noise, train=True)
+            with span("train_step.backward"):
+                loss.backward()
             metrics = {k: v.detach() for k, v in metrics.items()}
-            if parallel.active():
-                parallel.all_reduce_mean_(list(metrics.values()))
-            metrics["grad_norm"] = apply_gradients(state, self.cfg.clip_grad)
+            metrics["grad_norm"] = apply_gradients(state, self.cfg.clip_grad, metrics)
             return metrics
 
         return train_step
@@ -441,23 +452,35 @@ class TrainState:
     params: list[torch.nn.Parameter]  # the optimizer's, in its order
 
 
-def apply_gradients(state: TrainState, clip_grad: float) -> torch.Tensor:
-    """Average the gradients over the ranks of a process group, clip them
-    by their global norm, update at the schedule's rate for `state.step`,
-    advance the step; -> the norm before clipping."""
-    for p in state.params:
-        if p.grad is None:  # optax updates every leaf
+def _filled_grads(params) -> list[torch.Tensor]:
+    """The parameters' gradients, zeros where the backward left none
+    (optax updates every leaf)."""
+    for p in params:
+        if p.grad is None:
             p.grad = torch.zeros_like(p)
-    grads = [p.grad for p in state.params]
+    return [p.grad for p in params]
+
+
+def apply_gradients(state: TrainState, clip_grad: float, metrics=None) -> torch.Tensor:
+    """Average the gradients (and the `metrics`' tensors, in place) over
+    the ranks of a process group, clip the gradients by their global norm,
+    update at the schedule's rate for `state.step`, advance the step; -> the
+    norm before clipping."""
     if parallel.active():
-        parallel.all_reduce_mean_(grads)
-    gnorm = global_norm(grads)
-    if clip_grad is not None and clip_grad > 0:
-        clip_by_global_norm_(grads, clip_grad, gnorm)
-    for group in state.optimizer.param_groups:
-        group["lr"] = state.schedule(state.step)
-    state.optimizer.step()
-    state.step += 1
+        with span("train_step.grad_sync"):
+            if metrics:
+                parallel.all_reduce_mean_(list(metrics.values()))
+            parallel.all_reduce_mean_(_filled_grads(state.params))
+    with span("train_step.clip"):
+        grads = _filled_grads(state.params)
+        gnorm = global_norm(grads)
+        if clip_grad is not None and clip_grad > 0:
+            clip_by_global_norm_(grads, clip_grad, gnorm)
+    with span("train_step.update"):
+        for group in state.optimizer.param_groups:
+            group["lr"] = state.schedule(state.step)
+        state.optimizer.step()
+        state.step += 1
     return gnorm.detach()
 
 
@@ -480,7 +503,7 @@ def single_frame_disp(bundle: ModelBundle, img) -> torch.Tensor:
     """Eval-mode disparity (B, 1, H, W) f32 of NCHW images on the bundle's
     device (evaluate_depth.py pipeline)."""
     bundle.eval()
-    with torch.no_grad():
+    with span("single_frame_disp"), torch.no_grad():
         return bundle.depth(bundle.encoder(img))[0].float()
 
 
@@ -496,17 +519,20 @@ def multi_frame_disp(bundle: ModelBundle, img_n1, img_0, img_p1) -> torch.Tensor
     B = img_0.shape[0]
     bundle.eval()
     with torch.no_grad():
-        embt = torch.full((B, 1, 1, 1), 0.5, device=img_0.device)
-        flows = bundle.vfi_test(img_n1, img_p1, embt, only_flow=True)
-        # encoder_mf under separate_all, else the shared encoder
-        encoder = getattr(bundle, "encoder_mf", bundle.encoder)
-        feats = encoder(torch.cat([img_n1, img_0, img_p1], 0))
-        ids = torch.cat([torch.arange(B), torch.arange(2 * B, 3 * B)]).to(
-            device=img_0.device, dtype=torch.int32)
-        fused = bundle.fusion_module(
-            [None, [f[B:2 * B] for f in feats], None],
-            (flows["flow0"].float(), flows["flow1"].float()), flows["mask"].float(),
-            warp_table=(feats, ids),
-        )
-        depth_mf = getattr(bundle, "depth_mf", bundle.depth)
-        return depth_mf(fused)[0].float()
+        with span("multi_frame_disp.flow"):
+            embt = torch.full((B, 1, 1, 1), 0.5, device=img_0.device)
+            flows = bundle.vfi_test(img_n1, img_p1, embt, only_flow=True)
+        with span("multi_frame_disp.encoder"):
+            # encoder_mf under separate_all, else the shared encoder
+            encoder = getattr(bundle, "encoder_mf", bundle.encoder)
+            feats = encoder(torch.cat([img_n1, img_0, img_p1], 0))
+        with span("multi_frame_disp.fusion"):
+            ids = torch.cat([torch.arange(B), torch.arange(2 * B, 3 * B)]).to(
+                device=img_0.device, dtype=torch.int32)
+            fused = bundle.fusion_module(
+                [None, [f[B:2 * B] for f in feats], None],
+                (flows["flow0"].float(), flows["flow1"].float()), flows["mask"].float(),
+                warp_table=(feats, ids),
+            )
+            depth_mf = getattr(bundle, "depth_mf", bundle.depth)
+            return depth_mf(fused)[0].float()

@@ -11,6 +11,7 @@ arithmetic on the same inputs); the JAX disparities from `model_0.pth`
 atol 2e-4, as tests/test_torch_eval.py; the pretrained weights exactly.
 """
 
+import json
 import os
 import pathlib
 import shutil
@@ -98,7 +99,7 @@ def _weights(bundle):
 
 @pytest.fixture(scope="module")
 def epoch0(kitti_env, tmp_path_factory):
-    """One uninterrupted epoch (3 steps, the first 2 traced by
+    """One uninterrupted epoch (3 steps, steps 2 and 3 traced by
     torch.profiler, a checkpoint after each of steps 2 and 3, the mid-epoch
     one kept aside), then its evaluation and save."""
     data_path, splits_dir = kitti_env
@@ -141,6 +142,20 @@ def test_trainer_steps_checkpoints_and_evaluates(epoch0):
     assert "optimizer" not in weights and "encoder_mf" not in weights
     for tag in ("single-frame", "multi-frame"):
         assert all(np.isfinite(v) for v in t.eval_results[0, tag].values())
+
+
+def test_profile_trace_names_the_port_spans_from_step_2(epoch0):
+    """profile_steps=2 traces steps 2 and 3 (the first, with cuDNN's
+    autotuning on the card, would swamp the trace), with the trainer's and
+    the step's spans in it."""
+    _, _, log_dir = epoch0
+    run = os.path.join(log_dir, "run")
+    with open(os.path.join(run, "profile", "trace.json")) as f:
+        names = [e.get("name") for e in json.load(f)["traceEvents"]]
+    assert {"run_epoch.data_wait", "run_epoch.step", "train_step.clip"} <= set(names)
+    assert names.count("run_epoch.step") == names.count("train_step.clip") == 2
+    with open(os.path.join(run, "logger.log")) as f:
+        assert "Profiler trace of steps 2 to 3 of the epoch" in f.read()
 
 
 def test_eval_needs_no_padding(epoch0):
