@@ -465,14 +465,15 @@ def apply_gradients(state: TrainState, clip_grad: float, metrics=None) -> torch.
     """Average the gradients (and the `metrics`' tensors, in place) over
     the ranks of a process group, clip the gradients by their global norm,
     update at the schedule's rate for `state.step`, advance the step; -> the
-    norm before clipping."""
+    norm before clipping. The all-reduce, the norm and the clip share one
+    list of the gradients."""
+    grads = _filled_grads(state.params)
     if parallel.active():
         with span("train_step.grad_sync"):
             if metrics:
                 parallel.all_reduce_mean_(list(metrics.values()))
-            parallel.all_reduce_mean_(_filled_grads(state.params))
+            parallel.all_reduce_mean_(grads)
     with span("train_step.clip"):
-        grads = _filled_grads(state.params)
         gnorm = global_norm(grads)
         if clip_grad is not None and clip_grad > 0:
             clip_by_global_norm_(grads, clip_grad, gnorm)

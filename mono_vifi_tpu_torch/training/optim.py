@@ -8,8 +8,19 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils._foreach_utils import _group_tensors_by_device_and_dtype
 
 from mono_vifi_tpu_torch.config import Options
+
+# Summed over `clip_by_global_norm_` calls: the leaves clipped and the
+# (device, dtype) groups they took, one multi-tensor pass of each operation
+# per group; groups == calls where every leaf went in one pass.
+CLIP_COUNTS = {"calls": 0, "leaves": 0, "groups": 0}
+
+
+def reset_clip_counts() -> None:
+    for k in CLIP_COUNTS:
+        CLIP_COUNTS[k] = 0
 
 
 def lr_schedule(cfg: Options, steps_per_epoch: int):
@@ -51,14 +62,34 @@ def make_optimizer(cfg: Options, params) -> torch.optim.Optimizer:
     raise ValueError(f"unknown optimizer {cfg.optimizer}")
 
 
+def _groups(grads) -> list[list[torch.Tensor]]:
+    """The leaves by (device, dtype), in order: a multi-tensor op takes its
+    one-pass path only over tensors of one device and one dtype."""
+    return [lists[0] for lists, _ in _group_tensors_by_device_and_dtype([list(grads)]).values()]
+
+
 def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of squares of every gradient, in f32 (optax.global_norm)."""
-    return torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
+    """sqrt of the sum of squares of every gradient, in f32 (optax.global_norm):
+    each leaf's norm in one multi-tensor pass per (device, dtype) group, then
+    the norm of those norms; a device scalar, read by no host sync."""
+    norms = [n for g in _groups(grads) for n in torch._foreach_norm(
+        g, 2, dtype=torch.promote_types(g[0].dtype, torch.float32))]
+    return torch.linalg.vector_norm(torch.stack(norms)).float()
 
 
 def clip_by_global_norm_(grads, max_norm: float, norm: torch.Tensor) -> None:
     """In place, as optax.clip_by_global_norm: g / norm * max_norm when
-    norm >= max_norm, unchanged otherwise (no epsilon)."""
+    norm >= max_norm, unchanged otherwise (no epsilon). No branch on the
+    host: every leaf is divided by `d` and multiplied by `m`, both 1 below
+    max_norm (g / 1 * 1 is g bit for bit), one multi-tensor pass of each per
+    (device, dtype) group instead of a launch per operation and leaf."""
     keep = norm < max_norm
-    for g in grads:
-        g.copy_(torch.where(keep, g, g / norm * max_norm))
+    d = torch.where(keep, 1.0, norm)
+    m = torch.where(keep, 1.0, max_norm)
+    groups = _groups(grads)
+    for g in groups:
+        torch._foreach_div_(g, d)
+        torch._foreach_mul_(g, m)
+    CLIP_COUNTS["calls"] += 1
+    CLIP_COUNTS["leaves"] += sum(map(len, groups))
+    CLIP_COUNTS["groups"] += len(groups)
