@@ -10,6 +10,10 @@ grid gradient (`bilinear_sample_bwd`) trains the flows in VFI training.
 Sampling grids are built in f32 whatever the compute dtype. Given the middle
 frame `imgt`, the forward also returns the VFI training loss (Charbonnier
 L1 + ternary census + 0.01 * geometry; reference :436-438).
+
+While a profiler runs, the forward names its four parts (`tracing.span`):
+`ifrnet.encoder`, `ifrnet.decoders`, `ifrnet.image_warp` and, given
+`imgt`, `ifrnet.loss`.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from mono_vifi_tpu_torch.models.common import Conv, ConvPReLU, ConvTranspose4x4,
 from mono_vifi_tpu_torch.ops.image import resize_bilinear
 from mono_vifi_tpu_torch.ops.losses import charbonnier_l1, geometry_loss, ternary_loss
 from mono_vifi_tpu_torch.ops.sampling import flow_to_grid, sample_planar, warp_planar
+from mono_vifi_tpu_torch.tracing import span
 
 PYRAMID_CHANNELS = {
     "large": (64, 96, 144, 192),
@@ -110,62 +115,66 @@ class IFRNet(nn.Module):
     def forward(self, img0, img1, embt, imgt=None, only_flow: bool = False):
         B, _, H, W = img0.shape
         sf = resolve_scale_factor(H, W)
-        mean_ = 0.5 * (img0.mean(dim=(1, 2, 3), keepdim=True)
-                       + img1.mean(dim=(1, 2, 3), keepdim=True))
-        img0 = img0 - mean_
-        img1 = img1 - mean_
-        fh, fw = int(H * sf[0]), int(W * sf[1])
-        # every frame through the (normalization-free) encoder in one pass
-        frames = [img0, img1]
-        if imgt is not None and not only_flow:
-            imgt_sub = imgt - mean_
-            frames.append(imgt_sub)
-        feats = self.encoder(resize_bilinear(torch.cat(frames, 0), (fh, fw)))
-        f0 = [f[:B] for f in feats]
-        f1 = [f[B:2 * B] for f in feats]
+        with span("ifrnet.encoder"):
+            mean_ = 0.5 * (img0.mean(dim=(1, 2, 3), keepdim=True)
+                           + img1.mean(dim=(1, 2, 3), keepdim=True))
+            img0 = img0 - mean_
+            img1 = img1 - mean_
+            fh, fw = int(H * sf[0]), int(W * sf[1])
+            # every frame through the (normalization-free) encoder in one pass
+            frames = [img0, img1]
+            if imgt is not None and not only_flow:
+                imgt_sub = imgt - mean_
+                frames.append(imgt_sub)
+            feats = self.encoder(resize_bilinear(torch.cat(frames, 0), (fh, fw)))
+            f0 = [f[:B] for f in feats]
+            f1 = [f[B:2 * B] for f in feats]
 
-        embt_map = embt.reshape(B, 1, 1, 1).to(f0[3].dtype).expand(
-            B, 1, *f0[3].shape[2:]
-        )
-        out = self.decoder4(torch.cat([f0[3], f1[3], embt_map], 1))
-        flow0, flow1, ft_ = out[:, 0:2], out[:, 2:4], out[:, 4:]
-        fts = [ft_]  # the decoders' feature outputs, coarse to fine
-        for dec, lvl in ((self.decoder3, 2), (self.decoder2, 1), (self.decoder1, 0)):
-            fw_ = warp_planar(
-                torch.cat([f0[lvl], f1[lvl]], 0), torch.cat([flow0, flow1], 0)
+        with span("ifrnet.decoders"):
+            embt_map = embt.reshape(B, 1, 1, 1).to(f0[3].dtype).expand(
+                B, 1, *f0[3].shape[2:]
             )
-            out = dec(torch.cat([ft_, fw_[:B], fw_[B:], flow0, flow1], 1))
-            up0 = 2.0 * resize_bilinear(flow0, out.shape[2:])
-            up1 = 2.0 * resize_bilinear(flow1, out.shape[2:])
-            flow0 = out[:, 0:2] + up0
-            flow1 = out[:, 2:4] + up1
-            ft_ = out[:, 4:]
-            fts.append(ft_)
+            out = self.decoder4(torch.cat([f0[3], f1[3], embt_map], 1))
+            flow0, flow1, ft_ = out[:, 0:2], out[:, 2:4], out[:, 4:]
+            fts = [ft_]  # the decoders' feature outputs, coarse to fine
+            for dec, lvl in ((self.decoder3, 2), (self.decoder2, 1), (self.decoder1, 0)):
+                fw_ = warp_planar(
+                    torch.cat([f0[lvl], f1[lvl]], 0), torch.cat([flow0, flow1], 0)
+                )
+                out = dec(torch.cat([ft_, fw_[:B], fw_[B:], flow0, flow1], 1))
+                up0 = 2.0 * resize_bilinear(flow0, out.shape[2:])
+                up1 = 2.0 * resize_bilinear(flow1, out.shape[2:])
+                flow0 = out[:, 0:2] + up0
+                flow1 = out[:, 2:4] + up1
+                ft_ = out[:, 4:]
+                fts.append(ft_)
 
-        mask = torch.sigmoid(ft_[:, 0:1])
-        scale = torch.tensor([1.0 / sf[1], 1.0 / sf[0]], dtype=flow0.dtype,
-                             device=flow0.device).view(1, 2, 1, 1)
-        flow0_full = resize_bilinear(flow0, (H, W)) * scale
-        flow1_full = resize_bilinear(flow1, (H, W)) * scale
-        mask_full = resize_bilinear(mask, (H, W))
-        res = {"flow0": flow0_full, "flow1": flow1_full, "mask": mask_full}
-        if only_flow:
-            return res
+        with span("ifrnet.image_warp"):
+            mask = torch.sigmoid(ft_[:, 0:1])
+            scale = torch.tensor([1.0 / sf[1], 1.0 / sf[0]], dtype=flow0.dtype,
+                                 device=flow0.device).view(1, 2, 1, 1)
+            flow0_full = resize_bilinear(flow0, (H, W)) * scale
+            flow1_full = resize_bilinear(flow1, (H, W)) * scale
+            mask_full = resize_bilinear(mask, (H, W))
+            res = {"flow0": flow0_full, "flow1": flow1_full, "mask": mask_full}
+            if only_flow:
+                return res
 
-        # both frame warps in one kernel launch; bf16 taps in the bf16 path
-        gx, gy = flow_to_grid(torch.cat([flow0_full, flow1_full], 0))
-        tap_dtype = self.dtype if self.dtype != torch.float32 else None
-        w2 = sample_planar(torch.cat([img0, img1], 0), gx, gy, "border",
-                           tap_dtype=tap_dtype)
-        merge = mask_full * w2[:B] + (1 - mask_full) * w2[B:]
-        res["imgt_pred"] = torch.clamp(merge + mean_, 0.0, 1.0)
+            # both frame warps in one kernel launch; bf16 taps in the bf16 path
+            gx, gy = flow_to_grid(torch.cat([flow0_full, flow1_full], 0))
+            tap_dtype = self.dtype if self.dtype != torch.float32 else None
+            w2 = sample_planar(torch.cat([img0, img1], 0), gx, gy, "border",
+                               tap_dtype=tap_dtype)
+            merge = mask_full * w2[:B] + (1 - mask_full) * w2[B:]
+            res["imgt_pred"] = torch.clamp(merge + mean_, 0.0, 1.0)
         if imgt is not None:
             # on the merge before the clamp; the middle frame's features
             # against the decoders' at levels 1-3 (reference :430-438)
-            ft = [f[2 * B:] for f in feats]
-            res["loss"] = (
-                charbonnier_l1(merge - imgt_sub) + ternary_loss(merge, imgt_sub)
-                + 0.01 * (geometry_loss(fts[2], ft[0]) + geometry_loss(fts[1], ft[1])
-                          + geometry_loss(fts[0], ft[2]))
-            )
+            with span("ifrnet.loss"):
+                ft = [f[2 * B:] for f in feats]
+                res["loss"] = (
+                    charbonnier_l1(merge - imgt_sub) + ternary_loss(merge, imgt_sub)
+                    + 0.01 * (geometry_loss(fts[2], ft[0]) + geometry_loss(fts[1], ft[1])
+                              + geometry_loss(fts[0], ft[2]))
+                )
         return res

@@ -11,17 +11,24 @@ The spans, by layer:
 
   trainer train.py `Trainer.run_epoch`: run_epoch.data_wait, run_epoch.step,
           run_epoch.log, run_epoch.checkpoint
-  step    training/monovifi.py `make_train_step` and `apply_gradients`:
-          train_step.forward, train_step.backward, train_step.grad_sync
-          (in a process group), train_step.clip, train_step.update
+  step    training/monovifi.py `make_train_step` and `apply_gradients`,
+          training/vfi.py `make_vfi_train_step`: train_step.forward,
+          train_step.backward, train_step.grad_sync (in a process group),
+          train_step.clip, train_step.update
   loss    `MonoViFiStep.loss_fn`, inside train_step.forward: forward.vfi,
           forward.pose, forward.rotate_crop, forward.encoder, forward.depth,
           forward.fusion, forward.photometric, forward.svdc,
           forward.affine_losses
   entry   single_frame_disp; multi_frame_disp.flow, multi_frame_disp.encoder,
           multi_frame_disp.fusion; evaluate_depth.py to_device_images
+  models  models/ifrnet.py `IFRNet.forward`, inside forward.vfi,
+          multi_frame_disp.flow and the VFI step's train_step.forward:
+          ifrnet.encoder, ifrnet.decoders, ifrnet.image_warp, ifrnet.loss
+          (given the middle frame)
 
-The port's counters are `ops.cuda.LAUNCHES` and `ops.cuda.LAUNCH_SHAPES`.
+The port's counters are `ops.cuda.LAUNCHES` and `ops.cuda.LAUNCH_SHAPES`
+(launches by kernel, and by kernel and shape) and `training.optim.CLIP_COUNTS`
+(the clip's calls, leaves and groups).
 """
 
 from __future__ import annotations

@@ -13,6 +13,10 @@ In a process group (mono_vifi_tpu_torch.parallel) each rank steps on its
 rows of the global batch; `apply_gradients` averages the gradients, and the
 loss and the prediction's mean squared error are averaged over the ranks
 before the PSNR is taken, so the metrics are the global batch's.
+
+The step's spans are the depth step's: `train_step.forward` (`zero_grad`,
+the forward and its loss), `train_step.backward`, and `apply_gradients`'
+clip and update.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from mono_vifi_tpu_torch import parallel
 from mono_vifi_tpu_torch.config import Options
 from mono_vifi_tpu_torch.models.ifrnet import IFRNet
 from mono_vifi_tpu_torch.models.init import init_like_jax_
+from mono_vifi_tpu_torch.tracing import span
 from mono_vifi_tpu_torch.training.factory import compute_dtype, resolve_device
 from mono_vifi_tpu_torch.training.monovifi import apply_gradients, prepare_batch
 from mono_vifi_tpu_torch.training.optim import lr_schedule, make_optimizer
@@ -69,9 +74,12 @@ def make_vfi_train_step(clip_grad: float):
     def train_step(state: VFITrainState, batch):
         b = prepare_batch(batch, state.params[0].device)
         img1 = b["img1"]
-        state.optimizer.zero_grad(set_to_none=True)
-        out = state.module(b["img0"], b["img2"], b["embt"].reshape(-1, 1, 1, 1), imgt=img1)
-        out["loss"].backward()
+        with span("train_step.forward"):
+            state.optimizer.zero_grad(set_to_none=True)
+            out = state.module(b["img0"], b["img2"], b["embt"].reshape(-1, 1, 1, 1),
+                               imgt=img1)
+        with span("train_step.backward"):
+            out["loss"].backward()
         grad_norm = apply_gradients(state, clip_grad)
         loss = out["loss"].detach()
         with torch.no_grad():
