@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from mono_vifi_tpu_torch.models.common import Conv1x1
 from mono_vifi_tpu_torch.ops.cuda.splat import grid_sample_frozen_grid
-from mono_vifi_tpu_torch.ops.image import resize_bilinear
+from mono_vifi_tpu_torch.ops.image import device_constant, resize_bilinear
 from mono_vifi_tpu_torch.ops.sampling import flow_to_grid, warp_planar
 
 
@@ -27,13 +27,14 @@ def embed_flow(x, num_freqs: int = 10):
     sin(2^k x), cos(2^k x)], as one phase-shifted sine (cos t = sin(t+pi/2))."""
     n = x.shape[1]
     K = num_freqs
-    freqs = torch.tensor(
-        [2.0**k for k in range(K) for _ in range(2 * n)],
-        dtype=x.dtype, device=x.device,
-    ).view(1, -1, 1, 1)
-    phase = torch.tensor(
-        ([0.0] * n + [math.pi / 2] * n) * K, dtype=x.dtype, device=x.device
-    ).view(1, -1, 1, 1)
+    freqs = device_constant(
+        ("embed_freqs", n, K), x.dtype, x.device,
+        lambda: torch.tensor([2.0**k for k in range(K) for _ in range(2 * n)],
+                             dtype=x.dtype).view(1, -1, 1, 1))
+    phase = device_constant(
+        ("embed_phase", n, K), x.dtype, x.device,
+        lambda: torch.tensor(([0.0] * n + [math.pi / 2] * n) * K,
+                             dtype=x.dtype).view(1, -1, 1, 1))
     out = torch.sin(x.repeat(1, 2 * K, 1, 1) * freqs + phase)
     return torch.cat([x, out], dim=1)
 
@@ -104,8 +105,7 @@ class FusionModule(nn.Module):
     @staticmethod
     def _level_flow(flow, H, W):
         fh, fw = flow.shape[2:]
-        scale = torch.tensor([W / fw, H / fh], dtype=flow.dtype,
-                             device=flow.device).view(1, 2, 1, 1)
+        scale = device_constant((W / fw, H / fh), flow.dtype, flow.device).view(1, 2, 1, 1)
         return resize_bilinear(flow, (H, W)) * scale
 
     def forward(self, features, flows, merge_mask, warp_table=None):

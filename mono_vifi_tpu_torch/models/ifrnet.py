@@ -22,7 +22,7 @@ import torch
 import torch.nn as nn
 
 from mono_vifi_tpu_torch.models.common import Conv, ConvPReLU, ConvTranspose4x4, PReLU
-from mono_vifi_tpu_torch.ops.image import resize_bilinear
+from mono_vifi_tpu_torch.ops.image import device_constant, resize_bilinear
 from mono_vifi_tpu_torch.ops.losses import charbonnier_l1, geometry_loss, ternary_loss
 from mono_vifi_tpu_torch.ops.sampling import flow_to_grid, sample_planar, warp_planar
 from mono_vifi_tpu_torch.tracing import span
@@ -151,8 +151,8 @@ class IFRNet(nn.Module):
 
         with span("ifrnet.image_warp"):
             mask = torch.sigmoid(ft_[:, 0:1])
-            scale = torch.tensor([1.0 / sf[1], 1.0 / sf[0]], dtype=flow0.dtype,
-                                 device=flow0.device).view(1, 2, 1, 1)
+            scale = device_constant((1.0 / sf[1], 1.0 / sf[0]), flow0.dtype,
+                                    flow0.device).view(1, 2, 1, 1)
             flow0_full = resize_bilinear(flow0, (H, W)) * scale
             flow1_full = resize_bilinear(flow1, (H, W)) * scale
             mask_full = resize_bilinear(mask, (H, W))

@@ -20,6 +20,32 @@ import torch.nn.functional as F
 from mono_vifi_tpu_torch.ops.cuda.splat import grid_sample_frozen_grid
 from mono_vifi_tpu_torch.ops.sampling import sample_planar
 
+# Small constant tensors of the models, made once per key, dtype and device.
+# Built from host values, each is a blocking host-to-device copy that waits
+# for the device's queue to drain, and no such copy may run while a CUDA
+# graph captures; from this cache a call at shapes seen before copies none.
+_CONSTANTS: dict = {}
+# constants made (cache misses): a call at shapes seen before adds none
+CONSTANT_COUNTS = {"misses": 0}
+
+
+def reset_constant_counts() -> None:
+    CONSTANT_COUNTS["misses"] = 0
+
+
+def device_constant(values, dtype, device, make=None) -> torch.Tensor:
+    """The tensor `torch.tensor(values, dtype=dtype)` on `device`, made once.
+    With `make`, `values` is only the key and `make()` builds the CPU tensor.
+    Callers must not write to the result: every caller shares it."""
+    key = (values, dtype, device)
+    t = _CONSTANTS.get(key)
+    if t is None:
+        t = make() if make else torch.tensor(values, dtype=dtype)
+        t = t.to(device=device, dtype=dtype)
+        _CONSTANTS[key] = t
+        CONSTANT_COUNTS["misses"] += 1
+    return t
+
 
 @functools.lru_cache(maxsize=None)
 def _interp_matrix(in_size: int, out_size: int, align_corners: bool) -> np.ndarray:
@@ -50,8 +76,10 @@ def resize_bilinear(x, size, align_corners: bool = False):
     Ho, Wo = size
     if (Ho, Wo) == (H, W):
         return x
-    Mh = torch.from_numpy(_interp_matrix(H, Ho, align_corners)).to(x.device, x.dtype)
-    Mw = torch.from_numpy(_interp_matrix(W, Wo, align_corners)).to(x.device, x.dtype)
+    Mh, Mw = (
+        device_constant(("interp", n, m, align_corners), x.dtype, x.device,
+                        lambda: torch.from_numpy(_interp_matrix(n, m, align_corners)))
+        for n, m in ((H, Ho), (W, Wo)))
     return torch.matmul(torch.matmul(Mh, x), Mw.t())
 
 

@@ -20,15 +20,20 @@ The spans, by layer:
           forward.fusion, forward.photometric, forward.svdc,
           forward.affine_losses
   entry   single_frame_disp; multi_frame_disp.flow, multi_frame_disp.encoder,
-          multi_frame_disp.fusion; evaluate_depth.py to_device_images
+          multi_frame_disp.fusion (each around a graph's replay once the
+          entry replays, training/graphs.py); evaluate_depth.py
+          to_device_images
   models  models/ifrnet.py `IFRNet.forward`, inside forward.vfi,
-          multi_frame_disp.flow and the VFI step's train_step.forward:
-          ifrnet.encoder, ifrnet.decoders, ifrnet.image_warp, ifrnet.loss
-          (given the middle frame)
+          multi_frame_disp.flow (where the entry runs eager or captures)
+          and the VFI step's train_step.forward: ifrnet.encoder,
+          ifrnet.decoders, ifrnet.image_warp, ifrnet.loss (given the middle
+          frame)
 
 The port's counters are `ops.cuda.LAUNCHES` and `ops.cuda.LAUNCH_SHAPES`
-(launches by kernel, and by kernel and shape) and `training.optim.CLIP_COUNTS`
-(the clip's calls, leaves and groups).
+(launches by kernel, and by kernel and shape), `training.optim.CLIP_COUNTS`
+(the clip's calls, leaves and groups), `training.graphs.ENTRY_GRAPHS` (the
+eval entries' calls, eager, captured or replayed) and
+`ops.image.CONSTANT_COUNTS` (device constants made).
 """
 
 from __future__ import annotations

@@ -44,6 +44,7 @@ from mono_vifi_tpu_torch.ops import losses as L
 from mono_vifi_tpu_torch.ops.cuda.photometric import ssim_l1_map, ssim_l1_map_nograd
 from mono_vifi_tpu_torch.ops.sampling import sample_planar
 from mono_vifi_tpu_torch.tracing import span
+from mono_vifi_tpu_torch.training import graphs
 from mono_vifi_tpu_torch.training.factory import ModelBundle, build_bundle, resolve_device
 from mono_vifi_tpu_torch.training.optim import (
     clip_by_global_norm_, global_norm, lr_schedule, make_optimizer,
@@ -332,10 +333,9 @@ class MonoViFiStep:
             flow_next = torch.cat([flow_0_p1, flow_nt_0, flow_pt_p1], 0)
             mask3 = torch.cat([mask_01, mask_nt, mask_pt], 0)
             unique = [torch.cat([a, a2, a3], 0) for a, a2, a3 in zip(f0_mf, fn1_mf, fp1_mf)]
-            ids = torch.tensor(
-                [p * B + j for p in TABLE_USES for j in range(B)],
-                dtype=torch.int32, device=self.device,
-            )
+            ids = image_ops.device_constant(
+                tuple(p * B + j for p in TABLE_USES for j in range(B)), torch.int32,
+                self.device)
             fused = b.fusion_module(
                 [None, center, None], (flow_prev, flow_next), mask3,
                 warp_table=(unique, ids),
@@ -502,10 +502,12 @@ def create_train_state(cfg: Options, seed: int = 0, steps_per_epoch: int = 1000,
 # -------------------------------------------------------------- eval forward
 def single_frame_disp(bundle: ModelBundle, img) -> torch.Tensor:
     """Eval-mode disparity (B, 1, H, W) f32 of NCHW images on the bundle's
-    device (evaluate_depth.py pipeline)."""
+    device (evaluate_depth.py pipeline); on the card, replayed from a CUDA
+    graph once its input signature repeats (`training/graphs.py`)."""
     bundle.eval()
-    with span("single_frame_disp"), torch.no_grad():
-        return bundle.depth(bundle.encoder(img))[0].float()
+    enc, dec = bundle.encoder, bundle.depth
+    phases = (("single_frame_disp", lambda x, r: dec(enc(x[0]))[0].float()),)
+    return graphs.run(bundle, "single_frame_disp", (enc, dec), phases, (img,))
 
 
 def multi_frame_disp(bundle: ModelBundle, img_n1, img_0, img_p1) -> torch.Tensor:
@@ -516,24 +518,35 @@ def multi_frame_disp(bundle: ModelBundle, img_n1, img_0, img_p1) -> torch.Tensor
     The fusion warp reads the neighbours' maps straight out of the stacked
     pyramid through a use -> plane table (uses 0..B-1 read planes 0..B-1,
     uses B..2B-1 read planes 2B..3B-1), so the two neighbour pyramids are
-    never concatenated; the values equal those of the plain path."""
+    never concatenated; the values equal those of the plain path.
+
+    Its three phases run in the spans `multi_frame_disp.flow`, `.encoder`
+    and `.fusion`; on the card each is replayed from its own CUDA graph once
+    the input signature repeats (`training/graphs.py`)."""
     B = img_0.shape[0]
     bundle.eval()
-    with torch.no_grad():
-        with span("multi_frame_disp.flow"):
-            embt = torch.full((B, 1, 1, 1), 0.5, device=img_0.device)
-            flows = bundle.vfi_test(img_n1, img_p1, embt, only_flow=True)
-        with span("multi_frame_disp.encoder"):
-            # encoder_mf under separate_all, else the shared encoder
-            encoder = getattr(bundle, "encoder_mf", bundle.encoder)
-            feats = encoder(torch.cat([img_n1, img_0, img_p1], 0))
-        with span("multi_frame_disp.fusion"):
-            ids = torch.cat([torch.arange(B), torch.arange(2 * B, 3 * B)]).to(
-                device=img_0.device, dtype=torch.int32)
-            fused = bundle.fusion_module(
-                [None, [f[B:2 * B] for f in feats], None],
-                (flows["flow0"].float(), flows["flow1"].float()), flows["mask"].float(),
-                warp_table=(feats, ids),
-            )
-            depth_mf = getattr(bundle, "depth_mf", bundle.depth)
-            return depth_mf(fused)[0].float()
+    vfi, fusion = bundle.vfi_test, bundle.fusion_module
+    # encoder_mf under separate_all, else the shared encoder
+    encoder = getattr(bundle, "encoder_mf", bundle.encoder)
+    depth_mf = getattr(bundle, "depth_mf", bundle.depth)
+
+    def flow(x, r):
+        embt = torch.full((B, 1, 1, 1), 0.5, device=x[1].device)
+        return vfi(x[0], x[2], embt, only_flow=True)
+
+    def fuse(x, r):
+        (flows, feats), dev = r, x[1].device
+        ids = image_ops.device_constant(tuple(range(B)) + tuple(range(2 * B, 3 * B)),
+                                        torch.int32, dev)
+        fused = fusion(
+            [None, [f[B:2 * B] for f in feats], None],
+            (flows["flow0"].float(), flows["flow1"].float()), flows["mask"].float(),
+            warp_table=(feats, ids),
+        )
+        return depth_mf(fused)[0].float()
+
+    phases = (("multi_frame_disp.flow", flow),
+              ("multi_frame_disp.encoder", lambda x, r: encoder(torch.cat(x, 0))),
+              ("multi_frame_disp.fusion", fuse))
+    return graphs.run(bundle, "multi_frame_disp", (vfi, encoder, fusion, depth_mf), phases,
+                      (img_n1, img_0, img_p1))
