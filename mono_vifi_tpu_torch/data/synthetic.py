@@ -1,6 +1,6 @@
 """Synthetic dataset trees in the layouts the port's readers expect, drawn
 from a numpy seed, for runs of the real trainers where the datasets are
-not at hand (chip_smoke.py and the tests): uint8 PNG frames of a smooth
+not at hand (the card's tests and the CPU tests): uint8 PNG frames of a smooth
 colour field that pans a few pixels a frame, plus noise, at the datasets'
 native sizes, the split files, the intrinsics and sparse synthetic ground
 truths. The ground truths are random, so the evaluation protocols' numbers

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 from mono_vifi_tpu_torch.models.common import Conv1x1
 from mono_vifi_tpu_torch.ops.cuda.splat import grid_sample_frozen_grid
 from mono_vifi_tpu_torch.ops.image import device_constant, resize_bilinear
-from mono_vifi_tpu_torch.ops.sampling import flow_to_grid, warp_planar
+from mono_vifi_tpu_torch.ops.sampling import flow_to_grid
 
 
 def embed_flow(x, num_freqs: int = 10):
@@ -108,36 +108,27 @@ class FusionModule(nn.Module):
         scale = device_constant((W / fw, H / fh), flow.dtype, flow.device).view(1, 2, 1, 1)
         return resize_bilinear(flow, (H, W)) * scale
 
-    def forward(self, features, flows, merge_mask, warp_table=None):
-        """`features` = [feats_n1, feats_0, feats_p1] pyramids (NCHW lists),
-        `flows` = (flow_0_n1, flow_0_p1), (B, 2, H, W) f32, `merge_mask`
-        (B, 1, H, W).
+    def forward(self, feats_0, flows, merge_mask, warp_table):
+        """`feats_0` = the frame-0 pyramid (NCHW list), `flows` =
+        (flow_0_n1, flow_0_p1), (B, 2, H, W) f32, `merge_mask` (B, 1, H, W).
 
-        `warp_table` = (unique pyramid, ids): the training path, and the
-        multi-frame inference path (under torch.no_grad(), where the
-        pyramid is the encoder's 3B stack itself). Each level of the unique
-        pyramid holds the U distinct source maps, and warp use k (first B:
+        `warp_table` = (unique pyramid, ids): each level of the unique
+        pyramid holds the distinct source maps, and warp use k (first B:
         previous frames, next B: next frames) reads unique[ids[k]] through
         the frozen-grid Function: its forward is the table-sample kernel,
-        its backward (the splat kernel) sums each unique map's uses.
-        `features[0]` and `features[2]` are then unused. Values equal those
-        of the plain path."""
-        feats_n1, feats_0, feats_p1 = features
+        its backward (the splat kernel) sums each unique map's uses. The
+        training step passes its three unique pyramids; the multi-frame
+        inference (under torch.no_grad()) passes the encoder's 3B stack
+        itself. The values equal those of warping the concatenated
+        neighbour pyramids."""
         flow_n1, flow_p1 = flows
         B = flow_n1.shape[0]
         flow_both = torch.cat([flow_n1, flow_p1], 0)
-        if warp_table is not None:
-            unique, ids = warp_table
-            both = []
-            for feat in unique:
-                gx, gy = flow_to_grid(self._level_flow(flow_both, *feat.shape[2:]))
-                both.append(grid_sample_frozen_grid(feat, gx, gy, "border", ids))
-        else:
-            both = [
-                warp_planar(torch.cat([a, b], 0),
-                            self._level_flow(flow_both, *a.shape[2:]))
-                for a, b in zip(feats_n1, feats_p1)
-            ]
+        unique, ids = warp_table
+        both = []
+        for feat in unique:
+            gx, gy = flow_to_grid(self._level_flow(flow_both, *feat.shape[2:]))
+            both.append(grid_sample_frozen_grid(feat, gx, gy, "border", ids))
         emb_0 = self._embedding_pyramid(torch.zeros_like(flow_n1[:1]))
         emb_np = self._embedding_pyramid(flow_both)
         fused = []

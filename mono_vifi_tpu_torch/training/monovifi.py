@@ -336,10 +336,7 @@ class MonoViFiStep:
             ids = image_ops.device_constant(
                 tuple(p * B + j for p in TABLE_USES for j in range(B)), torch.int32,
                 self.device)
-            fused = b.fusion_module(
-                [None, center, None], (flow_prev, flow_next), mask3,
-                warp_table=(unique, ids),
-            )
+            fused = b.fusion_module(center, (flow_prev, flow_next), mask3, (unique, ids))
             disp_fuse = b.role("depth_mf")(fused)[0].float()
             disp_0_fuse = disp_fuse[:B]
             disp_nt_fuse = disp_fuse[B:2 * B]
@@ -518,7 +515,7 @@ def multi_frame_disp(bundle: ModelBundle, img_n1, img_0, img_p1) -> torch.Tensor
     The fusion warp reads the neighbours' maps straight out of the stacked
     pyramid through a use -> plane table (uses 0..B-1 read planes 0..B-1,
     uses B..2B-1 read planes 2B..3B-1), so the two neighbour pyramids are
-    never concatenated; the values equal those of the plain path.
+    never concatenated; the values equal those of warping their concatenation.
 
     Its three phases run in the spans `multi_frame_disp.flow`, `.encoder`
     and `.fusion`; on the card each is replayed from its own CUDA graph once
@@ -538,11 +535,9 @@ def multi_frame_disp(bundle: ModelBundle, img_n1, img_0, img_p1) -> torch.Tensor
         (flows, feats), dev = r, x[1].device
         ids = image_ops.device_constant(tuple(range(B)) + tuple(range(2 * B, 3 * B)),
                                         torch.int32, dev)
-        fused = fusion(
-            [None, [f[B:2 * B] for f in feats], None],
-            (flows["flow0"].float(), flows["flow1"].float()), flows["mask"].float(),
-            warp_table=(feats, ids),
-        )
+        fused = fusion([f[B:2 * B] for f in feats],
+                       (flows["flow0"].float(), flows["flow1"].float()), flows["mask"].float(),
+                       (feats, ids))
         return depth_mf(fused)[0].float()
 
     phases = (("multi_frame_disp.flow", flow),

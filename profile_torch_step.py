@@ -1,18 +1,16 @@
 """Where the port's full-width paths spend the card's time.
 
 `--path train` (the default) builds the training step of `--config` (default
-configs/resnet18/ResNet18_KITTI_MR.txt, the step chip_smoke.py drives:
-ResNet18, 640x192, batch 10, frozen IFRNet-L, affine, shared_encoder, bf16;
-the other configs give chip_smoke.py's phase 8, 17 and 18 steps), parsed as
-a user runs it, with random weights from a seed, on a uint8 batch at the
-config's size; `--path single` and `--path multi` build the inference paths
-chip_smoke.py drives (the config's backbone at the config's size in f32
-with TF32 off, frozen IFRNet-S, batch 4 of uint8
-frames from a numpy seed, through the evaluation entry modules'
-`predict_disps` with flip post-processing and `predict_disps_mf`); `--path vfi`
-builds the VFI training step of `--config` (default
-configs/vfi/IFRNet_L_KITTI.txt, chip_smoke.py's phase 10: IFRNet-L, batch 16,
-the 160x576 crop, bf16; a Cityscapes config's crop is 176x480) on a batch of
+configs/resnet18/ResNet18_KITTI_MR.txt: ResNet18, 640x192, batch 10, frozen
+IFRNet-L, affine, shared_encoder, bf16; any other depth config gives its own
+step), parsed as a user runs it, with random weights from a seed, on a uint8
+batch at the config's size; `--path single` and `--path multi` build the
+inference paths of the evaluation entry modules (the config's backbone at
+the config's size in f32 with TF32 off, frozen IFRNet-S, batch 4 of uint8
+frames from a numpy seed, through `predict_disps` with flip post-processing
+and `predict_disps_mf`); `--path vfi` builds the VFI training step of
+`--config` (default configs/vfi/IFRNet_L_KITTI.txt: IFRNet-L, batch 16, the
+160x576 crop, bf16; a Cityscapes config's crop is 176x480) on a batch of
 frames from a numpy seed, and also
 times the plain feature warps at the step's three levels, forward and
 forward + backward (CUDA events), as a share of the step's device time.
@@ -26,10 +24,12 @@ the device's busy share (kernel time over wall time), the kernel time by
 category, the port's kernels, and the 20 kernels that take the most time.
 Tracing slows the host, so the busy share is given against both the traced
 and the untraced wall time; the peak device memory of the untraced calls is
-printed beside their time. The port's kernels are told apart by the names of
-the `__global__` functions in the checkout's `mono_vifi_tpu_torch/csrc`, so
-the script reads any version of the port. Run from the repository root on
-a machine with a CUDA device:
+printed beside their time. The categories are the benchmark's
+(`perfbench/trace.py`), with each of the port's kernels by its name; the
+port's kernels are told apart by the `__global__` functions in the sources
+of the package this script imports, its own checkout's when run from that
+checkout's root, so the script reads any version of the port. Run from the
+repository root on a machine with a CUDA device:
 
     python3 profile_torch_step.py [--path train|single|multi|vfi] [--config FILE]
         [--backbone NAME] [--world1]
@@ -38,48 +38,36 @@ a machine with a CUDA device:
 from __future__ import annotations
 
 import argparse
-import re
 import tempfile
 import time
 from collections import defaultdict
-from pathlib import Path
 
 import numpy as np
 import torch
 
-from chip_smoke import BI
 from mono_vifi_tpu_torch.bench import card_name, make_batch
-
-# a kernel as the profiler names it: `[void ](anonymous namespace)::<name>...`
-# (the return type shows on templates only)
-KERNEL_NAME = re.compile(r"^(?:void )?\(anonymous namespace\)::(\w+)")
-CATEGORIES = (
-    ("convolution", ("conv", "cudnn", "xmma", "implicit", "dgrad", "wgrad")),
-    ("matmul", ("gemm", "cutlass", "nvjet")),
-    ("batch norm", ("batch_norm", "batchnorm", "bn_")),
-    ("reduction", ("reduce",)),
-    ("gather/scatter/index", ("index", "gather", "scatter")),
-    ("elementwise", ("elementwise", "vectorized")),
-)
+from perfbench.trace import KERNEL_NAME, category, port_kernel_names
 
 
-def port_kernel_names() -> set[str]:
-    """The `__global__` functions of this checkout's kernel sources."""
-    csrc = Path(__file__).parent / "mono_vifi_tpu_torch" / "csrc"
-    return set(re.findall(
-        r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
-        "\n".join(p.read_text() for p in sorted(csrc.glob("*.cu")))))
+def label(name: str, port_kernels: set[str]) -> str:
+    """The benchmark's category of a device operation, a port kernel by
+    its own name."""
+    cat = category(name, port_kernels)
+    return f"port: {KERNEL_NAME.match(name).group(1)}" if cat == "port" else cat
 
 
-def category(name: str, port_kernels: set[str]) -> str:
-    kernel = KERNEL_NAME.match(name)
-    if kernel and kernel.group(1) in port_kernels:
-        return f"port: {kernel.group(1)}"
-    low = name.lower()
-    for cat, keys in CATEGORIES:
-        if any(k in low for k in keys):
-            return cat
-    return "other"
+def event_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean time of one call of `fn` by CUDA events over `iters` calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def train_call(dev, cfg):
@@ -108,13 +96,12 @@ def inference_call(dev, cfg, multi: bool):
                   fuse_model_type="shared_encoder", vfi_test_scale="small")
     bundle = build_bundle(cfg, seed=0, device=dev, for_training=False)
     rng = np.random.default_rng(2)
-    batch = {k: rng.integers(0, 256, (BI, H, W, 3), dtype=np.uint8)
+    args = (EDM if multi else ED).eval_args([] if multi else ["--post_process"])
+    batch = {k: rng.integers(0, 256, (args.batch_size, H, W, 3), dtype=np.uint8)
              for k in ("color_n1", "color_0", "color_p1")}
     if multi:
-        args = EDM.eval_args([])
-        return lambda: EDM.predict_disps_mf(args, bundle, [batch]), BI
-    args = ED.eval_args(["--post_process"])
-    return lambda: ED.predict_disps(args, bundle, [batch["color_0"]]), BI
+        return lambda: EDM.predict_disps_mf(args, bundle, [batch]), args.batch_size
+    return lambda: ED.predict_disps(args, bundle, [batch["color_0"]]), args.batch_size
 
 
 def vfi_crop(cfg) -> tuple:
@@ -144,7 +131,6 @@ def feature_warp_ms(dev, cfg) -> list[tuple[tuple, float, float]]:
     (both frames' features in one call, as models/ifrnet.py calls them, in
     the compute dtype; the flows f32): -> [(shape, forward ms, forward +
     backward ms)] by CUDA events."""
-    from chip_smoke import time_ms
     from mono_vifi_tpu_torch.models.ifrnet import PYRAMID_CHANNELS
     from mono_vifi_tpu_torch.ops.sampling import warp_planar
     from mono_vifi_tpu_torch.training.factory import compute_dtype
@@ -165,8 +151,8 @@ def feature_warp_ms(dev, cfg) -> list[tuple[tuple, float, float]]:
             torch.autograd.grad(o, (img, flow), torch.ones_like(o))
 
         with torch.no_grad():
-            f_ms = time_ms(fwd)
-        out.append((shape, f_ms, time_ms(fwd_bwd)))
+            f_ms = event_ms(fwd)
+        out.append((shape, f_ms, event_ms(fwd_bwd)))
     return out
 
 
@@ -244,7 +230,7 @@ def main() -> None:
     by_cat = defaultdict(float)
     port_kernels = port_kernel_names()
     for name, ms in by_name.items():
-        by_cat[category(name, port_kernels)] += ms
+        by_cat[label(name, port_kernels)] += ms
     print(f"kernel time by category (ms/{unit}):")
     for cat, ms in sorted(by_cat.items(), key=lambda kv: -kv[1]):
         print(f"  {ms:9.3f}  {ms / busy:6.1%}  {cat}")

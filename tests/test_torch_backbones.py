@@ -267,37 +267,39 @@ def test_decoder_matches_jax(nets):
     np.testing.assert_allclose(got, ref, atol=ATOL)
 
 
-@pytest.mark.parametrize("table", [False, True], ids=["plain", "table"])
-def test_fusion_matches_jax(nets, table):
+@pytest.mark.parametrize("layout", ["training", "inference"])
+def test_fusion_matches_jax(nets, layout):
     """The fusion module at the backbone's levels and channels (LiteMono:
     three levels from 1/4 resolution, its level-0 flow halved once more),
-    on the plain path and on the training step's unique-table path."""
+    through the training step's unique table and through the multi-frame
+    inference's (the 3B stack itself), against the JAX package's fusion on
+    the concatenated neighbour pyramids."""
     backbone, bundle, jb, params, _ = nets
     rng = np.random.default_rng(10)
     shapes = [f.shape for f in bundle.encoder.eval()(torch.zeros(1, 3, H, W))]
     L = len(shapes)
     uniq = [[rng.random((B, h, w, c)).astype(np.float32) for _, c, h, w in shapes]
             for _ in range(3)]
-    uses = TM.TABLE_USES
-    prev = [np.concatenate([uniq[u][i] for u in uses[:3]], 0) for i in range(L)]
-    nxt = [np.concatenate([uniq[u][i] for u in uses[3:]], 0) for i in range(L)]
-    center = [np.concatenate([uniq[0][i]] * 3, 0) for i in range(L)]
-    fl_n1, fl_p1 = (rng.uniform(-2, 2, (3 * B, H, W, 2)).astype(np.float32) for _ in range(2))
-    mask = rng.random((3 * B, H, W, 1)).astype(np.float32)
+    if layout == "training":
+        uses = TM.TABLE_USES
+        prev = [np.concatenate([uniq[u][i] for u in uses[:3]], 0) for i in range(L)]
+        nxt = [np.concatenate([uniq[u][i] for u in uses[3:]], 0) for i in range(L)]
+        center = [np.concatenate([uniq[0][i]] * 3, 0) for i in range(L)]
+    else:
+        uses = (0, 2)
+        prev, center, nxt = uniq
+    n = len(uses) // 2 * B
+    fl_n1, fl_p1 = (rng.uniform(-2, 2, (n, H, W, 2)).astype(np.float32) for _ in range(2))
+    mask = rng.random((n, H, W, 1)).astype(np.float32)
     ref = JF.FusionModule(num_ch_enc=bundle.num_ch_enc, backbone=backbone).apply(
         {"params": params["fusion_module"]},
         [[jnp.asarray(f) for f in p] for p in (prev, center, nxt)],
         (jnp.asarray(fl_n1), jnp.asarray(fl_p1)), jnp.asarray(mask))
-    fus = bundle.fusion_module
-    flows = (nchw(fl_n1), nchw(fl_p1))
+    unique = [torch.cat([nchw(uniq[u][i]) for u in range(3)], 0) for i in range(L)]
+    ids = torch.tensor([u * B + j for u in uses for j in range(B)], dtype=torch.int32)
     with torch.no_grad():
-        if table:
-            unique = [torch.cat([nchw(uniq[u][i]) for u in range(3)], 0) for i in range(L)]
-            ids = torch.tensor([u * B + j for u in uses for j in range(B)], dtype=torch.int32)
-            got = fus([None, [nchw(f) for f in center], None], flows, nchw(mask),
-                      warp_table=(unique, ids))
-        else:
-            got = fus([[nchw(f) for f in p] for p in (prev, center, nxt)], flows, nchw(mask))
+        got = bundle.fusion_module([nchw(f) for f in center], (nchw(fl_n1), nchw(fl_p1)),
+                                   nchw(mask), (unique, ids))
     assert len(got) == len(ref) == L
     for g, r in zip(got, ref):
         np.testing.assert_allclose(nhwc(g), np.asarray(r), atol=2e-4)

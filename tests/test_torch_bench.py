@@ -1,8 +1,8 @@
 """The port's bench (mono_vifi_tpu_torch.bench) on the CPU, against the root
 bench.py: its batch has bench.py's keys and shapes at every size the
 configs use (the images and masks uint8, as the data pipeline stages them),
-and at 640x192 it is byte for byte the batch chip_smoke.py built before the
-helper moved into the port; the command line resolves to bench.py's batch
+and at 640x192 it is byte for byte the batch the card's smoke script built
+before the helper moved into the port; the command line resolves to bench.py's batch
 and size table; `run` at a tiny size prints bench.py's record (plus the
 MFU against the H100's bf16 peak) as its last line; without a card the
 entry point raises."""
@@ -19,8 +19,8 @@ import bench as jbench  # the root bench.py: numpy at import, JAX only in main()
 from mono_vifi_tpu_torch import bench
 from mono_vifi_tpu_torch.config import Options
 
-# sha256 over the batch of chip_smoke.make_batch(device, 10) at 640x192 as it
-# was before the helper moved to mono_vifi_tpu_torch.bench: for each key in
+# sha256 over the card's smoke script's make_batch(device, 10) at 640x192 as
+# it was before the helper moved to mono_vifi_tpu_torch.bench: for each key in
 # sorted order, the key, the dtype, the shape and the bytes
 MR_BATCH_SHA256 = "73f64111082d385ce117f6bbd0d48b29041e457b4bb55ca72365de3ca572eacb"
 RECORD_KEYS = {"metric", "value", "unit", "vs_baseline", "tflop_per_step",

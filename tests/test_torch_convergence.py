@@ -5,7 +5,7 @@ abs_rel; `convergence_smoke.run` returns the JAX tool's keys
 (tools/convergence_smoke.py), and its entry point prints the JSON line
 `python -m mono_vifi_tpu_torch.convergence_smoke` prints, on the CPU when
 asked and raising without a card otherwise. Whether the loss falls is the
-card's check (chip_smoke.py phase 16) and tests/test_torch_train.py's at 40
+card's check (tests/test_torch_card.py) and tests/test_torch_train.py's at 40
 CPU steps."""
 
 import argparse

@@ -94,9 +94,9 @@ def multi_eager(bundle, img_n1, img_0, img_p1):
         ids = torch.cat([torch.arange(B), torch.arange(2 * B, 3 * B)]).to(
             device=img_0.device, dtype=torch.int32)
         fused = bundle.fusion_module(
-            [None, [f[B:2 * B] for f in feats], None],
+            [f[B:2 * B] for f in feats],
             (flows["flow0"].float(), flows["flow1"].float()), flows["mask"].float(),
-            warp_table=(feats, ids))
+            (feats, ids))
         return getattr(bundle, "depth_mf", bundle.depth)(fused)[0].float()
 
 

@@ -1,7 +1,7 @@
 """Kernel 5, `bilinear_sample_table`: its plain PyTorch version (what the CPU
-runs, and what chip_smoke.py holds the kernel against on the card) against
-the JAX package's table gather `grid_sample_table_resident` in interpret
-mode, on the three cases of tests/test_fwarp.py, and against the XLA
+runs, and what tests/test_torch_kernels_gpu.py holds the kernel against on
+the card) against the JAX package's table gather
+`grid_sample_table_resident` in interpret mode, on the three cases of tests/test_fwarp.py, and against the XLA
 `grid_sample_table`; against the factor composition it is written over
 (bit for bit); and the fusion table warp's Function, whose forward it is.
 

@@ -23,7 +23,7 @@ disparities differ by ~1e-6, hence rtol 1e-4 on the metrics, the
 tolerance of tests/test_torch_readers.py. The `eval_args` of both
 packages' entry modules are wrapped to append `--height 96 --width 320`,
 to keep the JAX package's CPU compiles cheap; the full 640x192 runs on the
-card, in chip_smoke.py.
+card, in tests/test_torch_card.py.
 """
 
 import argparse

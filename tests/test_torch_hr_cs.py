@@ -1,6 +1,6 @@
 """The KITTI-HR and Cityscapes configurations' driver paths on the CPU, at
-tiny sizes (64x96, tiny VFI, f32), on the synthetic trees that
-chip_smoke.py's phases 17-18 write (mono_vifi_tpu_torch.data.synthetic):
+tiny sizes (64x96, tiny VFI, f32), on the synthetic trees that the card's
+tests (tests/test_torch_card.py) write (mono_vifi_tpu_torch.data.synthetic):
 
   - the HR start: a `Trainer` from ResNet18_KITTI_HR.txt with
     `--pretrained_path` at another `Trainer`'s `models/model_0.pth` loads

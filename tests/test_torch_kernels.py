@@ -1,8 +1,9 @@
 """Each hand-written kernel's plain PyTorch version (what the CPU runs, and
-what chip_smoke.py holds the kernel against on the card) against the JAX
-package's Pallas kernel in interpret mode, as the JAX package's own tests
-run it (tests/test_pallas_warp.py, tests/test_pallas_photometric.py,
-tests/test_splat.py), and against its exact XLA oracles.
+what tests/test_torch_kernels_gpu.py holds the kernel against on the card)
+against the JAX package's Pallas kernel in interpret mode, as the JAX
+package's own tests run it (tests/test_pallas_warp.py,
+tests/test_pallas_photometric.py, tests/test_splat.py), and against its
+exact XLA oracles.
 
 Tolerances (f32): taps exact (both fetch the same values; bf16 taps round
 the same way); the fused sample atol 1e-5 against the Pallas path (XLA

@@ -1,6 +1,7 @@
 """Each hand-written kernel against its plain PyTorch version on CUDA
-tensors, at small shapes (chip_smoke.py repeats this at the training
-step's shapes). Needs a card: every test here is marked `gpu` and skips
+tensors, at small and ragged shapes, then at the shapes the port's paths
+give it (the `*_at_path_shapes` cases; tests/test_torch_card.py runs the
+paths themselves). Needs a card: every test here is marked `gpu` and skips
 without one. This file imports neither JAX nor tests/conftest.py's setup,
 so it runs on a machine without JAX:
 
@@ -22,9 +23,14 @@ at the small shape and 1e-4 of the largest |dx| at the ragged ones (the
 one-launch backward pools and folds in another order).
 """
 
+from pathlib import Path
+
 import pytest
 import torch
 
+from mono_vifi_tpu_torch import evaluate_depth
+from mono_vifi_tpu_torch.config import parse_options
+from mono_vifi_tpu_torch.data.vfi import CityscapesVFIDataset, KITTIVFIDataset
 from mono_vifi_tpu_torch.ops import cuda
 from mono_vifi_tpu_torch.ops import sampling as TS
 from mono_vifi_tpu_torch.ops.cuda import fwarp as FW
@@ -217,6 +223,9 @@ def test_sample_grid_gradient_matches_plain_on_the_card(img_dtype, tap_dtype, al
     (2, 3, 21, 3),    # W = 3
     (1, 4, 19, 40),   # two channel groups
     (2, 1, 2, 2),     # the smallest plane the reflect pad takes
+    (8, 3, 187, 629),  # ragged at the step's size: odd width, partial strips
+    (8, 3, 3, 640),   # H = 3 at the step's width
+    (8, 3, 192, 3),   # W = 3 at the step's height
 ])
 def test_ssim_l1_bwd_matches_plain_on_the_card(N, C, H, W):
     if not torch.cuda.is_available():
@@ -366,3 +375,281 @@ def test_splat_writes_bf16_as_the_cast_of_its_f32_sums(ct_dtype):
     ref = SP.bilinear_splat_plain(*args)
     ulp = 2.0 ** (math.floor(math.log2(ref.abs().max().item())) - 7)
     torch.testing.assert_close(got.float(), ref.to(torch.bfloat16).float(), atol=ulp, rtol=0)
+
+
+
+# ---- each kernel at the shapes of the port's paths: the depth training
+# steps of the nine configs/{resnet18,litemono,dhrnet}/*_{KITTI_MR,KITTI_HR,
+# CS}.txt, the two-rank step's local batch, the convergence smoke's (no
+# affine branch), the VFI configs' crops, and the table sample's inference
+# and evaluation batches. Tolerances as in the module docstring.
+# `PATH_SHAPES` gathers what these cases cover; tests/test_torch_card.py
+# fails a path that launches a kernel at a shape outside it.
+
+ROOT = Path(__file__).resolve().parents[1]
+SMOKE = (96, 320)  # convergence_smoke.run's defaults at batch 2, no affine branch
+TABLE_USES = (1, 1, 0, 2, 0, 2)  # training/monovifi.py: 6B uses of 3B planes
+MF_USES = (0, 2)  # multi_frame_disp: uses 0..B-1 and 2B..3B-1 of its 3B stack
+
+
+# the levels (channels, height, width) each backbone's fusion warps at an
+# input of h x w (LiteMono fuses from its stride-4 level)
+def resnet18_levels(h, w):
+    return ((64, h // 2, w // 2), (64, h // 4, w // 4), (128, h // 8, w // 8),
+            (256, h // 16, w // 16), (512, h // 32, w // 32))
+
+
+def resnet50_levels(h, w):
+    return ((64, h // 2, w // 2), (256, h // 4, w // 4), (512, h // 8, w // 8),
+            (1024, h // 16, w // 16), (2048, h // 32, w // 32))
+
+
+def litemono_levels(h, w):
+    return ((48, h // 4, w // 4), (80, h // 8, w // 8), (128, h // 16, w // 16))
+
+
+def dhrnet_levels(h, w):
+    return ((64, h // 2, w // 2), (18, h // 4, w // 4), (36, h // 8, w // 8),
+            (72, h // 16, w // 16), (144, h // 32, w // 32))
+
+
+LEVELS = {"ResNet18": resnet18_levels, "ResNet50": resnet50_levels,
+          "LiteMono": litemono_levels, "DHRNet": dhrnet_levels}
+DEPTH_CONFIGS = [f"configs/{d}/{n}_{s}.txt" for s in ("KITTI_MR", "KITTI_HR", "CS")
+                 for d, n in (("resnet18", "ResNet18"), ("litemono", "LiteMono"),
+                              ("dhrnet", "DHRNet"))]
+VFI_CONFIGS = ["configs/vfi/IFRNet_L_KITTI.txt", "configs/vfi/IFRNet_L_CS.txt",
+               "configs/vfi/IFRNet_S_KITTI.txt"]
+
+
+def _config(path, *argv):
+    return parse_options(["-c", str(ROOT / path), *argv])
+
+
+def _step(name, path, *argv):
+    """(name, batch, fusion levels, (height, width), affine branch) of a
+    depth config's training step."""
+    c = _config(path, *argv)
+    hw = (c.height, c.width)
+    return name, c.batch_size, LEVELS[c.backbone](*hw), hw, c.use_affine
+
+
+def _vfi_crop(c):
+    return (CityscapesVFIDataset if c.dataset == "cityscapes" else KITTIVFIDataset).crop_hw
+
+
+# the depth training steps; the two-rank step is the KITTI-MR one at half
+# its batch (tests/test_torch_card.py's DDP_B over two ranks)
+STEPS = [_step(Path(p).stem, p) for p in DEPTH_CONFIGS] + [
+    _step("two-rank", DEPTH_CONFIGS[0], "--batch_size", "5"),
+    ("convergence", 2, resnet18_levels(*SMOKE), SMOKE, False)]
+# the VFI steps' image warps, both frames of the batch in one launch
+VFI_WARPS = [(Path(p).stem, 2 * c.batch_size, _vfi_crop(c))
+             for p in VFI_CONFIGS for c in [_config(p)]]
+VFI_WARPS.append(("vfi-two-rank", VFI_WARPS[0][1] // 2, VFI_WARPS[0][2]))
+MR, HR, CS = (STEPS[i][3] for i in (0, 3, 6))  # ResNet18's three configs' sizes
+
+
+def _cases(rows):
+    """pytest params of (id, *values) rows, the first row of each value
+    kept."""
+    seen = {}
+    for name, *values in rows:
+        seen.setdefault(tuple(values), name)
+    return [pytest.param(*values, id=name) for values, name in seen.items()]
+
+
+def _smooth_grid(g, n, h, w, amp_x, amp_y):
+    """Coordinates (n, h, w) x 2 of a smooth view-synthesis-like flow."""
+    import math
+
+    dev = g.device
+    ys = torch.linspace(0, 2 * math.pi, h, device=dev).view(1, h, 1)
+    xs = torch.linspace(0, 2 * math.pi, w, device=dev).view(1, 1, w)
+    ph = torch.rand((4, n, 1, 1), generator=g, device=dev) * 2 * math.pi
+    dx = amp_x * (0.5 * torch.sin(ys + ph[0]) + 0.5 * torch.cos(xs + ph[1]))
+    dy = amp_y * (0.5 * torch.sin(xs + ph[2]) + 0.5 * torch.cos(ys + ph[3]))
+    gx, gy = TS.flow_to_grid(torch.stack([dx, dy], 1))
+    return gx.contiguous(), gy.contiguous()
+
+
+def _rotation_grid(g, n, h, w):
+    """Coordinates of rotations by up to 5 degrees: the affine branch's."""
+    from mono_vifi_tpu_torch.ops.image import rotation_grid
+
+    angle = (torch.rand((n,), generator=g, device=g.device) - 0.5) * 10.0
+    return rotation_grid(angle, h, w)
+
+
+def _card_generator(seed):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+bf16, f32 = torch.bfloat16, torch.float32
+
+
+SAMPLE_ROWS = (
+    [(f"{s}-photometric-6B", 12 * b, 3, *hw, "border", bf16) for s, b, _, hw, _ in STEPS]
+    + [("ResNet18_KITTI_MR-photometric-f32-taps", 12 * STEPS[0][1], 3, *MR, "border", f32)]
+    + [row for s, b, _, hw, affine in STEPS for row in (
+        [(f"{s}-synthesis", 4 * b, 3, *hw, "border", bf16)]
+        + ([(f"{s}-photometric-3B", 6 * b, 3, *hw, "border", bf16),
+            (f"{s}-affine-rotation", 2 * b, 3, *hw, "zeros", f32),
+            (f"{s}-sadc-restore", 3 * b, 1, *hw, "zeros", f32)] if affine else []))]
+    + [(s, n, 3, *crop, "border", bf16) for s, n, crop in VFI_WARPS])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,C,H,W,mode,tap_dtype", _cases(SAMPLE_ROWS))
+def test_sample_at_path_shapes(N, C, H, W, mode, tap_dtype):
+    g = _card_generator(11)
+    img = torch.rand((N, C, H, W), generator=g, device="cuda")
+    if mode == "zeros":
+        gx, gy = _rotation_grid(g, N, H, W)
+    else:
+        gx, gy = _smooth_grid(g, N, H, W, 40.0, 10.0)
+    assert torch.equal(WP.bilinear_sample(img, gx, gy, mode, tap_dtype=tap_dtype),
+                       WP.bilinear_sample_plain(img, gx, gy, mode, tap_dtype=tap_dtype))
+
+
+GRID_GRADIENT_ROWS = (
+    [(f"{s}-photometric-6B", 12 * b, *hw) for s, b, _, hw, _ in STEPS]
+    + [(f"{s}-photometric-3B", 6 * b, *hw) for s, b, _, hw, affine in STEPS if affine]
+    + [(s, n, *crop) for s, n, crop in VFI_WARPS])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,H,W", _cases(GRID_GRADIENT_ROWS))
+def test_sample_grid_gradient_at_path_shapes(N, H, W):
+    g = _card_generator(12)
+    img = torch.rand((N, 3, H, W), generator=g, device="cuda")
+    gx, gy = _smooth_grid(g, N, H, W, 40.0, 10.0)
+    ct = torch.randn(img.shape, generator=g, device="cuda")
+    kx, ky = WP.bilinear_sample_bwd(img, gx, gy, ct, tap_dtype=bf16)
+    px, py = WP.bilinear_sample_grid_bwd_plain(img, gx, gy, ct, tap_dtype=bf16)
+    tol = _grad_tol(img, ct)
+    torch.testing.assert_close(kx, px, atol=tol, rtol=0)
+    torch.testing.assert_close(ky, py, atol=tol, rtol=0)
+
+
+def _photometric_pair(g, n, h, w):
+    x = torch.rand((n, 3, h, w), generator=g, device="cuda")
+    return x, (x + 0.1 * torch.randn(x.shape, generator=g, device="cuda")).clamp(0, 1)
+
+
+SSIM_FWD_ROWS = (
+    [(f"{s}-{k}B", k * b, *hw, True) for s, b, _, hw, _ in STEPS for k in (6, 3)]
+    + [("ResNet18_KITTI_MR-6B-no-ssim", 6 * STEPS[0][1], *MR, False)])
+# the 3B map has a gradient only with the affine branch
+SSIM_BWD_ROWS = [(f"{s}-{k}B", k * b, *hw) for s, b, _, hw, affine in STEPS
+                 for k in ((6, 3) if affine else (6,))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,H,W,use_ssim", _cases(SSIM_FWD_ROWS))
+def test_ssim_l1_fwd_at_path_shapes(N, H, W, use_ssim):
+    x, y = _photometric_pair(_card_generator(13), N, H, W)
+    torch.testing.assert_close(PM.ssim_l1_fwd(x, y, use_ssim),
+                               PM.ssim_l1_fwd_plain(x, y, use_ssim), atol=1e-5, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,H,W", _cases(SSIM_BWD_ROWS))
+def test_ssim_l1_bwd_at_path_shapes(N, H, W):
+    g = _card_generator(14)
+    x, y = _photometric_pair(g, N, H, W)
+    ct = torch.rand((N, H, W), generator=g, device="cuda")
+    ref = PM.ssim_l1_bwd_plain(x, y, ct)
+    torch.testing.assert_close(PM.ssim_l1_bwd(x, y, ct), ref,
+                               atol=1e-4 * ref.abs().max().item(), rtol=0)
+
+
+SPLAT_LEVEL_ROWS = [(f"{s}-level{i}", b, *level) for s, b, levels, _, _ in STEPS
+                    for i, level in enumerate(levels)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,C,H,W", _cases(SPLAT_LEVEL_ROWS))
+def test_splat_at_fusion_levels(b, C, H, W):
+    """The fusion warps' backward (6b uses of 3b planes, bf16 cotangent):
+    the f32 sums, and the bf16 output of the training step's call within
+    one bf16 ulp of the largest value of the plain version's cast."""
+    import math
+
+    g = _card_generator(15)
+    ids, planes = _fusion_ids("cuda", b)
+    gx, gy = _smooth_grid(g, 6 * b, H, W, 10.0 * W / 320, 4.0 * H / 96)
+    f = [t.contiguous() for t in TS.border_factors((H, W), gx, gy)]
+    ct = torch.randn((6 * b, C, H, W), generator=g, device="cuda").to(bf16)
+    args = (ct, *f, (H, W), ids, planes)
+    ref = SP.bilinear_splat_plain(*args)
+    torch.testing.assert_close(SP.bilinear_splat(*args), ref,
+                               atol=1e-5 * ref.abs().max().item(), rtol=0)
+    ulp = 2.0 ** (math.floor(math.log2(ref.abs().max().item())) - 7)
+    torch.testing.assert_close(SP.bilinear_splat(*args, out_dtype=bf16).float(),
+                               ref.to(bf16).float(), atol=ulp, rtol=0)
+
+
+SADC_ROWS = [(s, 3 * b, *hw) for s, b, _, hw, affine in STEPS if affine]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N,H,W", _cases(SADC_ROWS))
+def test_splat_sadc_restore_at_path_shapes(N, H, W):
+    g = _card_generator(16)
+    gx, gy = _rotation_grid(g, N, H, W)
+    ct = torch.rand((N, 1, H, W), generator=g, device="cuda")
+    _check_splat(ct, TS.zeros_factors((H, W), gx, gy), (H, W))
+
+
+# the table sample's paths: (name, batch, uses, dtype, levels) for the
+# training steps (bf16), the evaluation entries' multi-frame inference of
+# each backbone (their batch, f32, 640x192), the Trainers' per-epoch
+# multi-frame evaluations (bf16: the synthetic KITTI tree's 8 test frames at
+# 640x192, batches of 4 at 1024x320, the synthetic Cityscapes tree's 4 at
+# 512x192) and test_video (batch 1, f32)
+BI = evaluate_depth.eval_args([]).batch_size
+TABLE_PATHS = [(s, b, TABLE_USES, bf16, levels) for s, b, levels, _, _ in STEPS] + [
+    (f"{net}-inference", BI, MF_USES, f32, levels(*MR)) for net, levels in LEVELS.items()] + [
+    ("mr-trainer-evaluation", 8, MF_USES, bf16, resnet18_levels(*MR)),
+    ("hr-trainer-evaluation", 4, MF_USES, bf16, resnet18_levels(*HR)),
+    ("cs-trainer-evaluation", 4, MF_USES, bf16, resnet18_levels(*CS)),
+    ("test-video", 1, MF_USES, f32, resnet18_levels(*MR)),
+]
+TABLE_ROWS = ([(f"{s}-level{i}", b, uses, dt, *level, False)
+               for s, b, uses, dt, levels in TABLE_PATHS for i, level in enumerate(levels)]
+              + [("ResNet18_KITTI_MR-level0-far", STEPS[0][1], TABLE_USES, bf16,
+                  *STEPS[0][2][0], True)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,uses,dtype,C,H,W,far", _cases(TABLE_ROWS))
+def test_table_sample_at_path_shapes(b, uses, dtype, C, H, W, far):
+    """Bit for bit; `far`: a grid up to three plane widths past every
+    border."""
+    g = _card_generator(17)
+    U, N = 3 * b, len(uses) * b
+    ids = torch.tensor([q * b + j for q in uses for j in range(b)],
+                       dtype=torch.int32, device="cuda")
+    table = torch.randn((U, C, H, W), generator=g, device="cuda").to(dtype)
+    if far:
+        gx = torch.rand((N, H, W), generator=g, device="cuda") * 8.0 - 4.0
+        gy = torch.rand((N, H, W), generator=g, device="cuda") * 8.0 - 4.0
+    else:
+        gx, gy = _smooth_grid(g, N, H, W, 10.0 * W / 320, 4.0 * H / 96)
+    assert torch.equal(FW.bilinear_sample_table(table, ids, gx, gy),
+                       FW.bilinear_sample_table_plain(table, ids, gx, gy))
+
+
+# (kernel, shape of its first tensor argument, as `ops.cuda.LAUNCH_SHAPES`
+# keys a launch) of every `*_at_path_shapes` and fusion-level case above
+PATH_SHAPES = frozenset(
+    [("bilinear_sample", (n, c, h, w)) for _, n, c, h, w, _, _ in SAMPLE_ROWS]
+    + [("bilinear_sample_bwd", (n, 3, h, w)) for _, n, h, w in GRID_GRADIENT_ROWS]
+    + [("ssim_l1_fwd", (n, 3, h, w)) for _, n, h, w, _ in SSIM_FWD_ROWS]
+    + [("ssim_l1_bwd", (n, 3, h, w)) for _, n, h, w in SSIM_BWD_ROWS]
+    + [("bilinear_splat", (6 * b, c, h, w)) for _, b, c, h, w in SPLAT_LEVEL_ROWS]
+    + [("bilinear_splat", (n, 1, h, w)) for _, n, h, w in SADC_ROWS]
+    + [("bilinear_sample_table", (3 * b, c, h, w)) for _, b, _, _, c, h, w, _ in TABLE_ROWS])

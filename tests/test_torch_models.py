@@ -142,37 +142,40 @@ def test_ifrnet_scale_factor():
     assert TIF.resolve_scale_factor(192, 640) == JIF._resolve_scale_factor(192, 640)
 
 
-@pytest.mark.parametrize("table", [False, True])
-def test_fusion_module(table):
-    """Both the plain path and the unique-table path (training: 3 unique
-    pyramids, 6 warp uses through the frozen-grid Function) equal the JAX
-    package's plain FusionModule."""
+@pytest.mark.parametrize("layout", ["training", "inference"])
+def test_fusion_module(layout):
+    """The unique-table path equals the JAX package's FusionModule on the
+    concatenated neighbour pyramids, in both callers' table layouts: the
+    training step's (3 unique pyramids, 6 warp uses through the frozen-grid
+    Function) and the multi-frame inference's (the 3B stack itself, uses
+    0..B-1 and 2B..3B-1)."""
     B, H, W = 2, 64, 64
     chans = (64, 64, 128, 256, 512)
     uniq = [[rand(B, H // s, W // s, c) for s, c in zip((2, 4, 8, 16, 32), chans)]
-            for _ in range(3)]  # f0, fn1, fp1
-    uses = (1, 1, 0, 2, 0, 2)  # prev: fn1, fn1, f0; next: fp1, f0, fp1
-    prev = [np.concatenate([uniq[u][i] for u in uses[:3]], 0) for i in range(5)]
-    nxt = [np.concatenate([uniq[u][i] for u in uses[3:]], 0) for i in range(5)]
-    center = [np.concatenate([uniq[0][i]] * 3, 0) for i in range(5)]
-    fl_n1 = rand(3 * B, H, W, 2, lo=-2, hi=2)
-    fl_p1 = rand(3 * B, H, W, 2, lo=-2, hi=2)
-    mask = rand(3 * B, H, W, 1)
+            for _ in range(3)]  # training: f0, fn1, fp1; inference: n1, 0, p1
+    if layout == "training":
+        uses = (1, 1, 0, 2, 0, 2)  # prev: fn1, fn1, f0; next: fp1, f0, fp1
+        prev = [np.concatenate([uniq[u][i] for u in uses[:3]], 0) for i in range(5)]
+        nxt = [np.concatenate([uniq[u][i] for u in uses[3:]], 0) for i in range(5)]
+        center = [np.concatenate([uniq[0][i]] * 3, 0) for i in range(5)]
+    else:
+        uses = (0, 2)
+        prev, center, nxt = uniq
+    n = len(uses) // 2 * B
+    fl_n1 = rand(n, H, W, 2, lo=-2, hi=2)
+    fl_p1 = rand(n, H, W, 2, lo=-2, hi=2)
+    mask = rand(n, H, W, 1)
     fus = seeded(TF.FusionModule, chans)
     v = jconvert.convert_fusion_module(sd_np(fus), num_levels=5)
     ref = JF.FusionModule(num_ch_enc=chans).apply(
         v, [[jnp.asarray(f) for f in p] for p in (prev, center, nxt)],
         (jnp.asarray(fl_n1), jnp.asarray(fl_p1)), jnp.asarray(mask),
     )
-    flows = (nchw(fl_n1), nchw(fl_p1))
+    unique = [torch.cat([nchw(uniq[u][i]) for u in range(3)], 0) for i in range(5)]
+    ids = torch.tensor([u * B + j for u in uses for j in range(B)], dtype=torch.int32)
     with torch.no_grad():
-        if table:
-            unique = [torch.cat([nchw(uniq[u][i]) for u in range(3)], 0) for i in range(5)]
-            ids = torch.tensor([u * B + j for u in uses for j in range(B)], dtype=torch.int32)
-            got = fus([None, [nchw(f) for f in center], None], flows, nchw(mask),
-                      warp_table=(unique, ids))
-        else:
-            got = fus([[nchw(f) for f in p] for p in (prev, center, nxt)], flows, nchw(mask))
+        got = fus([nchw(f) for f in center], (nchw(fl_n1), nchw(fl_p1)), nchw(mask),
+                  (unique, ids))
     for g, r in zip(got, ref):
         np.testing.assert_allclose(nhwc(g), np.asarray(r), atol=2e-4)
 
