@@ -9,7 +9,10 @@ run the plain versions on the card on purpose.
 Every wrapper adds one to its entry of `LAUNCHES` where it launches its
 kernel, and nowhere else, so a run can show which kernels it went through;
 `LAUNCH_SHAPES` counts the same launches by kernel and the shape of the
-kernel's first tensor argument.
+kernel's first tensor argument. A CUDA graph (`training/graphs.py`) keeps
+the launches made while it was captured (`recorded_launches`) and, at each
+replay, counts them again through `launch` without calling the library
+(`account`): the graph runs exactly those kernels with those arguments.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ LAUNCHES = {name: 0 for name in KERNELS}
 LAUNCH_SHAPES: collections.Counter = collections.Counter()
 
 _plain = False
+_account_only = False  # inside `account`: count, launch nothing
+_recording: list | None = None  # inside `recorded_launches`: the launches made
 
 
 def reset_launch_counts() -> None:
@@ -72,13 +77,42 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 def launch(fn_name: str, kernel: str, *args, shape: tuple) -> None:
     """Call one C entry point of the kernel library on the current stream,
     raise on a non-zero CUDA error code, and count the launch (under
-    `shape`, that of the kernel's first tensor argument)."""
-    from mono_vifi_tpu_torch.ops.cuda import build
+    `shape`, that of the kernel's first tensor argument). Inside `account`
+    it only counts."""
+    if not _account_only:
+        from mono_vifi_tpu_torch.ops.cuda import build
 
-    lib = build.load()
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib, fn_name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{fn_name} failed with CUDA error {err}")
+        lib = build.load()
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, fn_name)(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{fn_name} failed with CUDA error {err}")
+        if _recording is not None:
+            _recording.append((fn_name, kernel, args, tuple(shape)))
     LAUNCHES[kernel] += 1
     LAUNCH_SHAPES[kernel, tuple(shape)] += 1
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """-> a list that collects each launch made inside, as (entry point,
+    kernel, arguments, shape)."""
+    global _recording
+    prev, _recording = _recording, []
+    try:
+        yield _recording
+    finally:
+        _recording = prev
+
+
+def account(launches) -> None:
+    """Count `launches` (as `recorded_launches` lists them), each through
+    the module's `launch` as it stands, so a wrapper put in its place sees
+    them, without calling the kernel library."""
+    global _account_only
+    prev, _account_only = _account_only, True
+    try:
+        for fn_name, kernel, args, shape in launches:
+            launch(fn_name, kernel, *args, shape=shape)
+    finally:
+        _account_only = prev

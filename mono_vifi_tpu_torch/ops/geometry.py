@@ -102,11 +102,12 @@ def reprojection_grid_planar(depth, K, inv_K, T, eps: float = 1e-7):
 def conjugate_pose(pose: torch.Tensor, Rc: torch.Tensor) -> torch.Tensor:
     """Affine-branch conjugation (reference train.py:819-828): rotation block
     Rc @ R @ Rc^-1, translation Rc @ t, bottom row zero. f32 inside, returned
-    in the pose dtype."""
+    in the pose dtype. The inverse skips `linalg.inv`'s check for singular
+    input, which reads the device's status on the host: Rc is a rotation."""
     R = pose[:, :3, :3].float()
     t = pose[:, :3, 3:4].float()
     Rc = Rc.float()
     out = torch.zeros(pose.shape, dtype=torch.float32, device=pose.device)
-    out[:, :3, :3] = _mm(Rc, _mm(R, torch.linalg.inv(Rc)))
+    out[:, :3, :3] = _mm(Rc, _mm(R, torch.linalg.inv_ex(Rc).inverse))
     out[:, :3, 3:4] = _mm(Rc, t)
     return out.to(pose.dtype)

@@ -11,11 +11,14 @@ The spans, by layer:
 
   trainer train.py `Trainer.run_epoch`: run_epoch.data_wait, run_epoch.step,
           run_epoch.log, run_epoch.checkpoint
-  step    training/monovifi.py `make_train_step` and `apply_gradients`,
-          training/vfi.py `make_vfi_train_step`: train_step.forward,
-          train_step.backward, train_step.grad_sync (in a process group),
-          train_step.clip, train_step.update
-  loss    `MonoViFiStep.loss_fn`, inside train_step.forward: forward.vfi,
+  step    training/monovifi.py `run_train_step` (the steps of
+          `make_train_step` and training/vfi.py `make_vfi_train_step`) and
+          `apply_gradients`: train_step.forward, train_step.backward,
+          train_step.grad_sync (in a process group), train_step.clip,
+          train_step.update (each around a graph's replay once the step
+          replays, training/graphs.py)
+  loss    `MonoViFiStep.loss_fn`, inside train_step.forward (where the
+          step runs eager or captures): forward.vfi,
           forward.pose, forward.rotate_crop, forward.encoder, forward.depth,
           forward.fusion, forward.photometric, forward.svdc,
           forward.affine_losses
@@ -24,15 +27,16 @@ The spans, by layer:
           entry replays, training/graphs.py); evaluate_depth.py
           to_device_images
   models  models/ifrnet.py `IFRNet.forward`, inside forward.vfi,
-          multi_frame_disp.flow (where the entry runs eager or captures)
-          and the VFI step's train_step.forward: ifrnet.encoder,
+          multi_frame_disp.flow and the VFI step's train_step.forward (where
+          the entry or step runs eager or captures): ifrnet.encoder,
           ifrnet.decoders, ifrnet.image_warp, ifrnet.loss (given the middle
           frame)
 
 The port's counters are `ops.cuda.LAUNCHES` and `ops.cuda.LAUNCH_SHAPES`
 (launches by kernel, and by kernel and shape), `training.optim.CLIP_COUNTS`
-(the clip's calls, leaves and groups), `training.graphs.ENTRY_GRAPHS` (the
-eval entries' calls, eager, captured or replayed) and
+(the clip's calls, leaves and groups), `training.graphs.ENTRY_GRAPHS` and
+`STEP_GRAPHS` (the eval entries' and the training steps' calls, eager,
+captured or replayed) and
 `ops.image.CONSTANT_COUNTS` (device constants made).
 """
 

@@ -47,7 +47,7 @@ from mono_vifi_tpu_torch.tracing import span
 from mono_vifi_tpu_torch.training import graphs
 from mono_vifi_tpu_torch.training.factory import ModelBundle, build_bundle, resolve_device
 from mono_vifi_tpu_torch.training.optim import (
-    clip_by_global_norm_, global_norm, lr_schedule, make_optimizer,
+    clip_by_global_norm_, global_norm, lr_schedule, make_optimizer, set_lr,
 )
 from mono_vifi_tpu_torch.training.pretrained import apply_pretrained
 
@@ -423,17 +423,28 @@ class MonoViFiStep:
         """-> train_step(state, batch, generator=None, noise=None) -> metrics.
         Updates the state's parameters, optimizer moments and BatchNorm
         statistics in place: backward, global-norm clip, then the update at
-        the schedule's rate for `state.step`. In a process group the
-        metrics are the global batch's (averaged over the ranks)."""
+        the schedule's rate for `state.step`. The random draws not given
+        in `noise` come from `generator` first (`draw_noise`). On the card
+        the step replays CUDA graphs once its input signature repeats
+        (`run_train_step`), except with `encoder_remat`, whose recompute
+        PyTorch's checkpoint makes on the host at backward time. In a
+        process group the metrics are the global batch's (averaged over
+        the ranks)."""
         def train_step(state, batch, generator=None, noise=None):
-            with span("train_step.forward"):
-                state.optimizer.zero_grad(set_to_none=True)
-                loss, metrics = self.loss_fn(batch, generator, noise, train=True)
-            with span("train_step.backward"):
-                loss.backward()
-            metrics = {k: v.detach() for k, v in metrics.items()}
-            metrics["grad_norm"] = apply_gradients(state, self.cfg.clip_grad, metrics)
-            return metrics
+            if noise is None:
+                B, H, W = batch["color_0"].shape[:3]
+                noise = self.draw_noise(B, H, W, generator)
+            drawn = {f"noise.{k}": v for k, v in noise.items()}
+
+            def forward(x):
+                loss, metrics = self.loss_fn(
+                    {k: v for k, v in x.items() if k not in drawn},
+                    noise={k[6:]: x[k] for k in drawn}, train=True)
+                return loss, {k: v.detach() for k, v in metrics.items()}
+
+            return run_train_step(state, "monovifi", (self.b,), forward, {**batch, **drawn},
+                                  self.cfg.clip_grad, lambda f, gnorm: {**f[1], "grad_norm": gnorm},
+                                  capturable=not self.cfg.encoder_remat)
 
         return train_step
 
@@ -458,28 +469,84 @@ def _filled_grads(params) -> list[torch.Tensor]:
     return [p.grad for p in params]
 
 
+def _clip_gradients(grads, clip_grad: float) -> torch.Tensor:
+    """Clip `grads` in place by their global norm (none for a clip of 0 or
+    None); -> the norm before clipping."""
+    gnorm = global_norm(grads)
+    if clip_grad is not None and clip_grad > 0:
+        clip_by_global_norm_(grads, clip_grad, gnorm)
+    return gnorm.detach()
+
+
+def _gradient_phases(state, clip_grad: float, metrics: Callable) -> list:
+    """The phases after the backward, each in its span: in a process group
+    `train_step.grad_sync` (`metrics(results)`' tensors and the gradients
+    averaged over the ranks, in place), then `.clip` (the gradients filled,
+    their norm, the clip; -> the norm) and `.update` (the optimizer's step).
+    The all-reduce, the norm and the clip share one list of the gradients."""
+    def sync(x, r):
+        m = metrics(r)
+        if m:
+            parallel.all_reduce_mean_(list(m.values()))
+        parallel.all_reduce_mean_(_filled_grads(state.params))
+
+    phases = [("train_step.grad_sync", sync)] if parallel.active() else []
+    return phases + [
+        ("train_step.clip", lambda x, r: _clip_gradients(_filled_grads(state.params), clip_grad)),
+        ("train_step.update", lambda x, r: state.optimizer.step())]
+
+
 def apply_gradients(state: TrainState, clip_grad: float, metrics=None) -> torch.Tensor:
     """Average the gradients (and the `metrics`' tensors, in place) over
     the ranks of a process group, clip the gradients by their global norm,
     update at the schedule's rate for `state.step`, advance the step; -> the
-    norm before clipping. The all-reduce, the norm and the clip share one
-    list of the gradients."""
-    grads = _filled_grads(state.params)
-    if parallel.active():
-        with span("train_step.grad_sync"):
-            if metrics:
-                parallel.all_reduce_mean_(list(metrics.values()))
-            parallel.all_reduce_mean_(grads)
-    with span("train_step.clip"):
-        gnorm = global_norm(grads)
-        if clip_grad is not None and clip_grad > 0:
-            clip_by_global_norm_(grads, clip_grad, gnorm)
-    with span("train_step.update"):
-        for group in state.optimizer.param_groups:
-            group["lr"] = state.schedule(state.step)
-        state.optimizer.step()
-        state.step += 1
-    return gnorm.detach()
+    norm before clipping. Eager: the training step's phases after its
+    backward."""
+    set_lr(state.optimizer, state.schedule(state.step))
+    results = graphs.eager(_gradient_phases(state, clip_grad, lambda r: metrics), {})
+    state.step += 1
+    return results[-2]
+
+
+def _step_tensors(state) -> list:
+    """The gradients, the optimizer's state and its learning rates."""
+    opt = state.optimizer
+    out = [p.grad for p in state.params]
+    for p in state.params:
+        out.extend(v for v in opt.state.get(p, {}).values() if isinstance(v, torch.Tensor))
+    out.extend(g["lr"] for g in opt.param_groups if isinstance(g["lr"], torch.Tensor))
+    return out
+
+
+def run_train_step(state, step: str, modules, forward: Callable, inputs: dict,
+                   clip_grad: float, outputs: Callable, capturable: bool = True):
+    """One training step on `inputs` (name -> tensor or array), in its
+    phases: `train_step.forward` (the gradients dropped, then
+    `forward(inputs)` -> (loss, {metric: detached tensor}, ...)),
+    `.backward`, then `_gradient_phases`, at the schedule's rate for
+    `state.step`; advances the step; -> `outputs(forward's result, grad
+    norm)`.
+
+    Eager, or on the card replayed from CUDA graphs once the signature
+    repeats (`graphs.run_step`, under the state's optimizer): not where the
+    optimizer is not capturable (SGD) or `capturable` is False. The random
+    draws are inputs, made before the step by the caller, so a replay uses
+    exactly the eager step's. The rate is written before the phases run, so
+    a replayed update reads the schedule's."""
+    def fwd(x, r):
+        state.optimizer.zero_grad(set_to_none=True)
+        return forward(x)
+
+    phases = [("train_step.forward", fwd),
+              ("train_step.backward", lambda x, r: r[0][0].backward()),
+              *_gradient_phases(state, clip_grad, lambda r: r[0][1])]
+    set_lr(state.optimizer, state.schedule(state.step))
+    capturable = capturable and all(g.get("capturable") for g in state.optimizer.param_groups)
+    out = graphs.run_step(state.optimizer, step, modules, phases, inputs,
+                          lambda r: outputs(r[0], r[-2]), lambda: _step_tensors(state),
+                          baked=(clip_grad,), capturable=capturable)
+    state.step += 1
+    return out
 
 
 def create_train_state(cfg: Options, seed: int = 0, steps_per_epoch: int = 1000,

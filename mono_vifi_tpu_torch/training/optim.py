@@ -47,19 +47,46 @@ def lr_schedule(cfg: Options, steps_per_epoch: int):
 
 
 def make_optimizer(cfg: Options, params) -> torch.optim.Optimizer:
-    """The update rule; its learning rate is set from `lr_schedule` before
-    each step. torch's AdamW equals optax.adamw: both decay by lr * wd * p
-    and use bias-corrected moments with eps outside the square root."""
+    """The update rule; its learning rate is set by `set_lr` from
+    `lr_schedule` before each step. torch's AdamW equals optax.adamw: both
+    decay by lr * wd * p and use bias-corrected moments with eps outside the
+    square root.
+
+    On the card AdamW and Adam are capturable, so a CUDA graph can hold the
+    update (`training/graphs.py`): their learning rate is a 0-d device
+    tensor, and the step counts and bias corrections stay on the device, in
+    f32, where the host computed the corrections in double before. SGD has
+    no capturable form."""
     params = list(params)
     lr = cfg.learning_rate
-    if cfg.optimizer == "adamw":
-        return torch.optim.AdamW(params, lr=lr, betas=(cfg.beta1, cfg.beta2),
-                                 eps=1e-8, weight_decay=cfg.weight_decay)
-    if cfg.optimizer == "adam":
-        return torch.optim.Adam(params, lr=lr, betas=(cfg.beta1, cfg.beta2), eps=1e-8)
+    if cfg.optimizer in ("adamw", "adam"):
+        kw = {"lr": lr, "betas": (cfg.beta1, cfg.beta2), "eps": 1e-8}
+        if params[0].device.type == "cuda":
+            kw.update(lr=torch.full((), lr, device=params[0].device), capturable=True)
+        opt = (torch.optim.AdamW(params, weight_decay=cfg.weight_decay, **kw)
+               if cfg.optimizer == "adamw" else torch.optim.Adam(params, **kw))
+        # the first step of each input signature runs uncaptured by design;
+        # torch would warn that it does
+        opt._warned_capturable_if_run_uncaptured = True
+        return opt
     if cfg.optimizer == "sgd":
         return torch.optim.SGD(params, lr=lr, momentum=cfg.momentum)
     raise ValueError(f"unknown optimizer {cfg.optimizer}")
+
+
+def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
+    """Every group's learning rate: written into a capturable group's 0-d
+    device tensor, which a captured update reads when it replays (a host
+    value, as `load_state_dict` leaves it from a file read onto the host,
+    is replaced by one); a float elsewhere."""
+    for group in optimizer.param_groups:
+        cur, device = group["lr"], group["params"][0].device
+        if not group.get("capturable"):
+            group["lr"] = lr
+        elif isinstance(cur, torch.Tensor) and cur.device == device:
+            cur.fill_(lr)
+        else:
+            group["lr"] = torch.full((), lr, device=device)
 
 
 def _groups(grads) -> list[list[torch.Tensor]]:

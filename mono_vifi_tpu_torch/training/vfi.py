@@ -10,13 +10,14 @@ warps are the plain differentiable warp, as on the JAX side (its VFI
 IFRNet is built without `fast_warp`).
 
 In a process group (mono_vifi_tpu_torch.parallel) each rank steps on its
-rows of the global batch; `apply_gradients` averages the gradients, and the
-loss and the prediction's mean squared error are averaged over the ranks
+rows of the global batch; the step's `train_step.grad_sync` averages the
+gradients, the loss and the prediction's mean squared error over the ranks
 before the PSNR is taken, so the metrics are the global batch's.
 
-The step's spans are the depth step's: `train_step.forward` (`zero_grad`,
-the forward and its loss), `train_step.backward`, and `apply_gradients`'
-clip and update.
+The step's phases and spans are the depth step's
+(`training/monovifi.py` `run_train_step`): `train_step.forward`
+(`zero_grad`, the forward, its loss and the prediction's error),
+`train_step.backward`, `.clip` and `.update`.
 """
 
 from __future__ import annotations
@@ -26,20 +27,18 @@ from typing import Callable
 
 import torch
 
-from mono_vifi_tpu_torch import parallel
 from mono_vifi_tpu_torch.config import Options
 from mono_vifi_tpu_torch.models.ifrnet import IFRNet
 from mono_vifi_tpu_torch.models.init import init_like_jax_
-from mono_vifi_tpu_torch.tracing import span
 from mono_vifi_tpu_torch.training.factory import compute_dtype, resolve_device
-from mono_vifi_tpu_torch.training.monovifi import apply_gradients, prepare_batch
+from mono_vifi_tpu_torch.training.monovifi import prepare_batch, run_train_step
 from mono_vifi_tpu_torch.training.optim import lr_schedule, make_optimizer
 
 
 @dataclass
 class VFITrainState:
     """Parameters live in `module`; `step` counts the updates taken (the
-    fields `apply_gradients` reads, as in `TrainState`)."""
+    fields `run_train_step` reads, as in `TrainState`)."""
 
     step: int
     module: IFRNet
@@ -70,25 +69,24 @@ def make_vfi_train_step(clip_grad: float):
     datasets collate them; the state's parameters and optimizer moments
     are updated in place. metrics: loss, psnr of the prediction (with 1e-12
     inside the log, as the JAX step), grad_norm before clipping; aux:
-    imgt_pred, flow0, flow1 (NCHW)."""
+    imgt_pred, flow0, flow1 (NCHW). On the card the step replays CUDA
+    graphs once its input signature repeats (`run_train_step`)."""
     def train_step(state: VFITrainState, batch):
-        b = prepare_batch(batch, state.params[0].device)
-        img1 = b["img1"]
-        with span("train_step.forward"):
-            state.optimizer.zero_grad(set_to_none=True)
+        def forward(x):
+            b = prepare_batch(x, state.params[0].device)
             out = state.module(b["img0"], b["img2"], b["embt"].reshape(-1, 1, 1, 1),
-                               imgt=img1)
-        with span("train_step.backward"):
-            out["loss"].backward()
-        grad_norm = apply_gradients(state, clip_grad)
-        loss = out["loss"].detach()
-        with torch.no_grad():
-            mse = torch.mean((out["imgt_pred"] - img1) ** 2)
-            if parallel.active():
-                parallel.all_reduce_mean_([loss, mse])
-            psnr = -10.0 * torch.log10(mse + 1e-12)
-        metrics = {"loss": loss, "psnr": psnr, "grad_norm": grad_norm}
-        aux = {k: out[k].detach() for k in ("imgt_pred", "flow0", "flow1")}
-        return metrics, aux
+                               imgt=b["img1"])
+            with torch.no_grad():
+                mse = torch.mean((out["imgt_pred"] - b["img1"]) ** 2)
+            aux = {k: out[k].detach() for k in ("imgt_pred", "flow0", "flow1")}
+            return out["loss"], {"loss": out["loss"].detach(), "mse": mse}, aux
+
+        def outputs(fwd, grad_norm):
+            return {**fwd[1], "grad_norm": grad_norm}, fwd[2]
+
+        metrics, aux = run_train_step(state, "vfi", (state.module,), forward, dict(batch),
+                                      clip_grad, outputs)
+        psnr = -10.0 * torch.log10(metrics.pop("mse") + 1e-12)
+        return {"loss": metrics["loss"], "psnr": psnr, "grad_norm": metrics["grad_norm"]}, aux
 
     return train_step
