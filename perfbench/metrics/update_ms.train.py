@@ -1,5 +1,6 @@
-"""Host ms per step in the port's `train_step.update` span (the learning
-rate, `optimizer.step()`, the step count), summed over the traced stretch.
+"""Host ms per step in the port's `train_step.update` span
+(`optimizer.step()`; the depth and the VFI steps alike), summed over the
+traced stretch.
 
 It reads the profiled stretch, where the profiler slows the host's dispatch
 (on an H100, traced ResNet18 steps took 239-293 ms against ~227 ms

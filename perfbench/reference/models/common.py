@@ -108,9 +108,11 @@ class LayerNorm(nn.LayerNorm):
 class PReLU(nn.Module):
     """Per-channel PReLU, alpha cast to the input dtype."""
 
+    INIT = {"weight": 0.25}
+
     def __init__(self, channels: int):
         super().__init__()
-        self.weight = nn.Parameter(torch.full((channels,), 0.25))
+        self.weight = nn.Parameter(torch.full((channels,), self.INIT["weight"]))
 
     def forward(self, x):
         return F.prelu(x, self.weight.to(x.dtype))

@@ -99,3 +99,11 @@ class DepthDecoder(nn.Module):
         # rounds 4-5: up to full resolution
         d5 = self._m("parallel_5_0")(upsample_nearest(self._m("parallel_4_0")(d0), 2))
         return {0: torch.sigmoid(self._m("dispconv_0")(d5))}
+
+
+def _build(cfg, scales, dtype):
+    encoder = DepthEncoder(dtype=dtype)
+    return encoder, DepthDecoder(encoder.num_ch_enc, scales, dtype)
+
+
+BACKBONES = {"DHRNet": _build}

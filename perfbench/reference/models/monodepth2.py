@@ -57,3 +57,13 @@ class DepthDecoder(nn.Module):
             if i in disp_convs:
                 out[i] = torch.sigmoid(disp_convs[i](x))
         return out
+
+
+def _build(num_layers):
+    def build(cfg, scales, dtype):
+        encoder = DepthEncoder(num_layers, dtype)
+        return encoder, DepthDecoder(encoder.num_ch_enc, scales, dtype)
+    return build
+
+
+BACKBONES = {"ResNet18": _build(18), "ResNet50": _build(50)}

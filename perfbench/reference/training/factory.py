@@ -11,25 +11,42 @@ Parameters are left as torch constructs them: the caller loads its own.
 from __future__ import annotations
 
 import copy
+import functools
+import importlib
+import pkgutil
 
 import torch
 import torch.nn as nn
 
+from perfbench.reference import models
 from perfbench.reference.config import Config
-from perfbench.reference.models import dhrnet, fusion, ifrnet, monodepth2, posenet
+from perfbench.reference.models import fusion, ifrnet, posenet
+
+
+@functools.cache
+def backbones() -> dict:
+    """{backbone name: build(cfg, scales, dtype) -> (encoder, decoder)},
+    gathered from the `BACKBONES` of every module file under
+    `reference/models/`: a new depth net joins by a file of its own. A name
+    that two modules declare raises ValueError."""
+    found, owner = {}, {}
+    for info in sorted(pkgutil.iter_modules(models.__path__), key=lambda i: i.name):
+        module = importlib.import_module(f"{models.__name__}.{info.name}")
+        for name, build in getattr(module, "BACKBONES", {}).items():
+            if name in found:
+                raise ValueError(f"backbone {name} declared by both {owner[name]} "
+                                 f"and {info.name}")
+            found[name], owner[name] = build, info.name
+    return found
 
 
 def build_depth_net(cfg: Config, dtype) -> tuple[nn.Module, nn.Module]:
     """The depth encoder and decoder of `cfg.backbone` (JAX factory.py:33-65).
     The pose encoder is ResNet(cfg.num_layers) whatever the backbone."""
-    scales = tuple(range(cfg.num_scales))
-    if cfg.backbone in ("ResNet18", "ResNet50"):
-        encoder = monodepth2.DepthEncoder(18 if cfg.backbone == "ResNet18" else 50, dtype)
-        return encoder, monodepth2.DepthDecoder(encoder.num_ch_enc, scales, dtype)
-    if cfg.backbone == "DHRNet":
-        encoder = dhrnet.DepthEncoder(dtype=dtype)
-        return encoder, dhrnet.DepthDecoder(encoder.num_ch_enc, scales, dtype)
-    raise ValueError(f"unknown backbone {cfg.backbone}")
+    known = backbones()
+    if cfg.backbone not in known:
+        raise ValueError(f"unknown backbone {cfg.backbone}; known: {', '.join(sorted(known))}")
+    return known[cfg.backbone](cfg, tuple(range(cfg.num_scales)), dtype)
 
 
 class ModelBundle(nn.Module):

@@ -1,7 +1,7 @@
 """The VFI training cell on a tiny CPU copy (IFRNet `tiny`, 64x96, B=2, the
 configuration's bf16): whole runs through `harness.execute`, traced and
 untraced, come out correct; the control and both planted faults come out
-not correct; each of the cell's eight per-layer readers reads a number,
+not correct; each of the cell's ten per-layer readers reads a number,
 the device's from a hand-built trace, and `elementwise_ms.train` in every
 training cell; the launches a step by kernel and shape that the driver
 prints beside the checks."""
@@ -89,13 +89,15 @@ def trace_of_a_step():
                     ("void (anonymous namespace)::bilinear_sample_kernel(...)",
                      90_000.0, 90_100.0)],
         host_spans=[("train_step.forward", 0.0, 60_000.0),
-                    ("train_step.backward", 60_000.0, 100_000.0)],
+                    ("train_step.backward", 60_000.0, 100_000.0),
+                    ("train_step.clip", 100_000.0, 102_000.0),
+                    ("train_step.update", 102_000.0, 110_000.0)],
         launches=[("mv_bilinear_sample", (0, 1, 1, 0, 0, 0, 32, 3, 160, 576, 160, 576, 0, 1))],
         port_kernels={"bilinear_sample_kernel"})
 
 
 def test_every_metric_reads_a_number():
-    assert len(METRICS) == 8
+    assert len(METRICS) == 10
     cell = registry.find_cell(CELL)
     spans = Spans()
     spans.records = [("step_call", 1.0, 1.25), ("step_call", 1.5, 1.75)]
@@ -106,6 +108,8 @@ def test_every_metric_reads_a_number():
     assert got["step_call_ms.train"] == pytest.approx(250.0)
     assert got["forward_ms.train_vfi"] == pytest.approx(30.0)
     assert got["backward_ms.train_vfi"] == pytest.approx(20.0)
+    assert got["clip_ms.train"] == pytest.approx(1.0)
+    assert got["update_ms.train"] == pytest.approx(4.0)
     assert got["elementwise_ms.train"] == pytest.approx(20.0)
     assert got["conv_ms.train"] == pytest.approx(25.0)
     assert 0 < got["port_kernels_roofline.train"] < 100

@@ -5,8 +5,11 @@ The rule is PyTorch's default initialisation, drawn in one call on the
 device: every convolution, transposed convolution and linear layer has its
 weight and bias uniform in +-1/sqrt(fan_in) (kaiming_uniform with
 a = sqrt(5), and the matching bias bound); BatchNorm and LayerNorm weights
-1 and biases 0; PReLU slopes 0.25. The names and shapes come from the
-reference's own modules, so the reference describes what is drawn."""
+1 and biases 0. Any other parameter takes the constant that the class of
+the module owning it declares in `INIT`, {parameter name: value}: PReLU
+slopes 0.25, a layer scale its initial value. The names and shapes come
+from the reference's own modules, so the reference describes what is
+drawn."""
 
 from __future__ import annotations
 
@@ -14,8 +17,6 @@ import math
 
 import torch
 import torch.nn as nn
-
-from perfbench.reference.models.common import PReLU
 
 _AFFINE = (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)
 _NORMS = (nn.BatchNorm2d, nn.LayerNorm)
@@ -36,8 +37,8 @@ def _leaves(module: nn.Module):
             out.append((name, tuple(p.shape), "uniform", 1.0 / math.sqrt(fan_in)))
         elif isinstance(m, _NORMS):
             out.append((name, tuple(p.shape), "const", 1.0 if pname == "weight" else 0.0))
-        elif isinstance(m, PReLU):
-            out.append((name, tuple(p.shape), "const", 0.25))
+        elif pname in getattr(type(m), "INIT", {}):
+            out.append((name, tuple(p.shape), "const", type(m).INIT[pname]))
         else:
             raise TypeError(f"no initialisation rule for {name} in {type(m).__name__}")
     return out
