@@ -14,7 +14,15 @@ resolution.
 
 Stochastic depth takes its per-sample keep masks from the caller (one row
 per block, see `DepthEncoder.draw_drop_masks`), drawn from an explicit
-generator, never the global RNG.
+generator, never the global RNG. The keep rates and the position features
+are device constants (`ops.image.device_constant`), so neither drawing the
+masks nor a forward copies from the host.
+
+Spans (mono_vifi_tpu_torch.tracing): litemono.stem (the stem and the
+downsamples), litemono.cdc (a CDC block's dilated depthwise conv and
+BatchNorm), litemono.xca (LGFI's position features, LayerNorm, attention
+and layer scale), litemono.mlp (a block's MLP, layer scale and drop path),
+litemono.decoder (`DepthDecoder.forward`).
 """
 
 from __future__ import annotations
@@ -30,7 +38,8 @@ import torch.nn.functional as F
 from mono_vifi_tpu_torch.models.common import (
     BatchNorm2d, Conv, Conv3x3, ConvBlock, LayerNorm, Linear,
 )
-from mono_vifi_tpu_torch.ops.image import resize_bilinear
+from mono_vifi_tpu_torch.ops.image import device_constant, resize_bilinear
+from mono_vifi_tpu_torch.tracing import span
 
 _MODELS = {
     "lite-mono": dict(dims=(48, 80, 128), depth=(4, 4, 10)),
@@ -172,9 +181,11 @@ class DilatedConvBlock(nn.Module):
         self.drop_path = DropPath(drop_path)
 
     def forward(self, x, mask=None):
-        y = self.bn1(self.ddwconv.conv(x)).permute(0, 2, 3, 1)
-        y = _mlp(self, y).permute(0, 3, 1, 2)
-        return x + self.drop_path(y, mask)
+        with span("litemono.cdc"):
+            y = self.bn1(self.ddwconv.conv(x)).permute(0, 2, 3, 1)
+        with span("litemono.mlp"):
+            y = _mlp(self, y).permute(0, 3, 1, 2)
+            return x + self.drop_path(y, mask)
 
 
 class _PosEmbedding(nn.Module):
@@ -195,26 +206,21 @@ class LGFIBlock(nn.Module):
         self.xca = XCA(dim, num_heads, dtype)
         _add_mlp(self, dim, expan_ratio, dtype)
         self.drop_path = DropPath(drop_path)
-        self._pe = None  # (key, the position features at that key)
-
-    def _position_features(self, H, W, device, dtype):
-        """`fourier_pos_embedding` on `device` in `dtype`, computed once per
-        shape, device and dtype."""
-        key = (H, W, device, dtype)
-        if self._pe is None or self._pe[0] != key:
-            self._pe = (key, torch.from_numpy(fourier_pos_embedding(H, W)).to(device, dtype))
-        return self._pe[1]
 
     def forward(self, x, mask=None):
         B, C, H, W = x.shape
-        t = x.flatten(2).transpose(1, 2)  # (B, HW, C)
-        if self.pos_embd is not None:
-            pe = self._position_features(H, W, x.device, x.dtype)
-            pe = self.pos_embd.token_projection(pe[None])  # (1, C, H, W)
-            t = t + pe.flatten(2).transpose(1, 2)
-        t = t + self.gamma_xca.to(t.dtype) * self.xca(self.norm_xca(t))
-        y = _mlp(self, t.reshape(B, H, W, C)).permute(0, 3, 1, 2)
-        return x + self.drop_path(y, mask)
+        with span("litemono.xca"):
+            t = x.flatten(2).transpose(1, 2)  # (B, HW, C)
+            if self.pos_embd is not None:
+                pe = device_constant(
+                    ("litemono.position_features", H, W), x.dtype, x.device,
+                    make=lambda: torch.from_numpy(fourier_pos_embedding(H, W)))
+                pe = self.pos_embd.token_projection(pe[None])  # (1, C, H, W)
+                t = t + pe.flatten(2).transpose(1, 2)
+            t = t + self.gamma_xca.to(t.dtype) * self.xca(self.norm_xca(t))
+        with span("litemono.mlp"):
+            y = _mlp(self, t.reshape(B, H, W, C)).permute(0, 3, 1, 2)
+            return x + self.drop_path(y, mask)
 
 
 class DepthEncoder(nn.Module):
@@ -262,27 +268,31 @@ class DepthEncoder(nn.Module):
 
     def draw_drop_masks(self, batch: int, generator=None, device=None) -> torch.Tensor:
         """Per-sample keep masks of every block, (blocks, batch) bool: row i
-        keeps with probability 1 - rate_i, from `generator`."""
-        keep = 1.0 - torch.tensor(self.drop_rates, device=device).view(-1, 1)
+        keeps with probability 1 - rate_i, from `generator`. The keep rates
+        are a device constant: no host copy, no wait for the device."""
+        rates = tuple(self.drop_rates)
+        keep = device_constant(("litemono.keep_rates", rates), torch.float32, device,
+                               make=lambda: 1.0 - torch.tensor(rates).view(-1, 1))
         u = torch.rand((self.num_drop_paths, batch), generator=generator, device=device)
         return u < keep
 
     def forward(self, x, drop_masks=None):
         """`drop_masks` (blocks, B) bool: the stochastic-depth keep masks,
         needed in training (see `draw_drop_masks`)."""
-        x = (x - 0.45) / 0.225
-        x_down, d = [], x
-        for _ in range(4):
-            d = F.avg_pool2d(d, 3, 2, 1, count_include_pad=True)
-            x_down.append(d)
-
-        y = self.downsample_layers[0](x)
-        y = self.stem2(torch.cat([y, x_down[0]], 1))
+        with span("litemono.stem"):
+            x = (x - 0.45) / 0.225
+            x_down, d = [], x
+            for _ in range(4):
+                d = F.avg_pool2d(d, 3, 2, 1, count_include_pad=True)
+                x_down.append(d)
+            y = self.downsample_layers[0](x)
+            y = self.stem2(torch.cat([y, x_down[0]], 1))
         features, tmp, cur = [], [y], 0
         for i, stage in enumerate(self.stages):
             if i > 0:
-                tmp.append(x_down[i])
-                y = self.downsample_layers[i](torch.cat(tmp, 1))
+                with span("litemono.stem"):
+                    tmp.append(x_down[i])
+                    y = self.downsample_layers[i](torch.cat(tmp, 1))
             stage_in = y
             for block in stage:
                 y = block(y, None if drop_masks is None else drop_masks[cur])
@@ -313,16 +323,17 @@ class DepthDecoder(nn.Module):
         self.decoder = nn.ModuleList(mods)
 
     def forward(self, feats):
-        out = {}
-        x = feats[-1]
-        disp_convs = {s: self.decoder[6 + k] for k, s in enumerate(self.scales)}
-        for k, i in enumerate(range(2, -1, -1)):
-            x = self.decoder[2 * k](x)
-            x = resize_bilinear(x, (x.shape[2] * 2, x.shape[3] * 2))
-            if i > 0:
-                x = torch.cat([x, feats[i - 1]], 1)
-            x = self.decoder[2 * k + 1](x)
-            if i in disp_convs:
-                f = disp_convs[i](x)
-                out[i] = torch.sigmoid(resize_bilinear(f, (f.shape[2] * 2, f.shape[3] * 2)))
-        return out
+        with span("litemono.decoder"):
+            out = {}
+            x = feats[-1]
+            disp_convs = {s: self.decoder[6 + k] for k, s in enumerate(self.scales)}
+            for k, i in enumerate(range(2, -1, -1)):
+                x = self.decoder[2 * k](x)
+                x = resize_bilinear(x, (x.shape[2] * 2, x.shape[3] * 2))
+                if i > 0:
+                    x = torch.cat([x, feats[i - 1]], 1)
+                x = self.decoder[2 * k + 1](x)
+                if i in disp_convs:
+                    f = disp_convs[i](x)
+                    out[i] = torch.sigmoid(resize_bilinear(f, (f.shape[2] * 2, f.shape[3] * 2)))
+            return out

@@ -30,7 +30,10 @@ The spans, by layer:
           multi_frame_disp.flow and the VFI step's train_step.forward (where
           the entry or step runs eager or captures): ifrnet.encoder,
           ifrnet.decoders, ifrnet.image_warp, ifrnet.loss (given the middle
-          frame)
+          frame); models/litemono.py, inside forward.encoder (the encoder)
+          and forward.depth and forward.fusion (the decoders), where the
+          step runs eager or captures: litemono.stem, litemono.cdc,
+          litemono.xca, litemono.mlp, litemono.decoder
 
 The port's counters are `ops.cuda.LAUNCHES` and `ops.cuda.LAUNCH_SHAPES`
 (launches by kernel, and by kernel and shape), `training.optim.CLIP_COUNTS`

@@ -24,8 +24,9 @@ wrapper on `ops.cuda.launch` sees, are the eager step's on a replay; a
 `step` boundary and a cosine schedule crossed between replays change the
 rate the update applies; `optimizer.load_state_dict` or a parameter given
 a new storage starts the key again; an SGD state, a FLOP count, a process
-group of one rank and `encoder_remat` stay eager. This file imports no
-JAX, so:
+group of one rank and `encoder_remat` stay eager; a replayed LiteMono step,
+its drop masks drawn before it, makes no stream synchronisation. This file
+imports no JAX, so:
 
     python -m pytest --noconftest -m gpu tests/test_torch_step_graphs.py
 """
@@ -53,11 +54,12 @@ from mono_vifi_tpu_torch.training.optim import lr_schedule
 ROOT = Path(__file__).resolve().parents[1]
 CONFIGS = {"ResNet18": "configs/resnet18/ResNet18_KITTI_MR.txt",
            "DHRNet": "configs/dhrnet/DHRNet_KITTI_MR.txt",
-           "VFI": "configs/vfi/IFRNet_L_KITTI.txt"}
+           "VFI": "configs/vfi/IFRNet_L_KITTI.txt",
+           "LiteMono": "configs/litemono/LiteMono_KITTI_MR.txt"}
 # PERF.md section 2: the worst leaf's first-gradient gap and change gap
 # that `correct` allows in each cell
-GRAD_LIMIT = {"ResNet18": 0.01, "DHRNet": 0.08, "VFI": 5e-3}
-CHANGE_LIMIT = {"ResNet18": 0.2, "DHRNet": 0.45, "VFI": 2e-3}
+GRAD_LIMIT = {"ResNet18": 0.01, "DHRNet": 0.08, "VFI": 5e-3, "LiteMono": 0.04}
+CHANGE_LIMIT = {"ResNet18": 0.2, "DHRNet": 0.45, "VFI": 2e-3, "LiteMono": 0.45}
 TERMS = ("loss", "loss_base", "loss_dc", "loss_sadc")
 STEPS = 5
 VFI_CROP = (160, 576)  # the KITTI VFI training crop
@@ -277,6 +279,29 @@ def test_replayed_steps_match_eager_steps(card, name):
     assert counts(step) == (1, 1, STEPS - 2)
     for out, copy_ in kept:
         assert all(torch.equal(out[k], copy_[k]) for k in out)
+
+
+@pytest.mark.gpu
+def test_replayed_litemono_step_makes_no_stream_sync(card):
+    """Under `torch.cuda.set_sync_debug_mode("error")` the replayed steps,
+    with the drop masks and the automask noise drawn inside each call, would
+    raise on a synchronising call that the mode detects (a blocking copy
+    from host memory among them, as the keep rates once made): none runs,
+    so a replay is queued behind the one before it."""
+    side = build("LiteMono", card, "--batch_size", "2")
+    batch = side.batch(0)
+    for i in range(2):  # eager, then capture
+        side.call(batch, i)
+    gens = [side.gen(i) for i in range(2, 5)]
+    torch.cuda.synchronize()
+    graphs.STEP_GRAPHS.clear()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = [side.train_step(side.state, batch, g) for g in gens]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert counts("monovifi") == (0, 0, 3)
+    assert all(math.isfinite(float(m["loss"])) for m in out)
 
 
 @pytest.mark.gpu
